@@ -8,26 +8,46 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. Build: compiles K1 (``wav2sleep_tpu_torch/csrc/conv_k3.cu``) with nvcc.
-3. Kernel: K1 against its plain PyTorch version (``conv_k3_reference``) at
-   every (C_in, C_out, stride) of the flagship encoders, at the ECG
-   encoder's lengths for a batch of 8 ten-hour nights, with phi as the
-   identity and as instance norm + gelu, in f32 (TF32 off, atol/rtol 1e-4)
-   and in bf16 (see ``BF16_TOL``); median CUDA-event times of both.
-4. Model: the recorded goldens (tests/goldens) reproduced on the card, and
-   the flagship forward at full width (f32, 2 one-hour nights, seeded
-   random weights) on the kernel path against the plain path; K1 must
-   launch exactly 80 times per forward.
-5. Serve: ``StreamingPipelineQ8`` in bf16, batch 8, on 16 ten-hour nights
-   (one with an absent modality); every hypnogram has 1200 epochs in 0..3.
-   The nights are seeded numpy waveforms mu-law encoded up front
-   (``mulaw_q8``, the q8 transport's encoding) and handed over by a small
-   extractor with ``Q8NightExtractor``'s ``extract_into`` interface, so the
-   host side of the timed run is a copy of ready codes. Throughput is all
-   nights served over all the time the passes took, the first pass included.
+2. Build: compiles ``csrc/conv_k3.cu`` (K1, K2) and ``csrc/ema_norm.cu``
+   (K3) with nvcc and the native host library (``native/src``, EDF decode
+   and the f64 EMA) with g++, all three at once; prints each build time.
+3. K1 against its plain PyTorch version (``conv_k3_reference``) at every
+   (C_in, C_out, stride) of the flagship encoders, at the ECG encoder's
+   lengths for a batch of 8 ten-hour nights, with phi as the identity and as
+   instance norm + gelu, in f32 (TF32 off, atol/rtol 1e-4) and in bf16 (see
+   ``BF16_TOL``); median CUDA-event times of K1, the plain version and, for
+   the identity, one ``F.conv1d`` call on the same tensors; each call's bound.
+4. K2 (``conv_k3_stats``) at the same shapes: y as K1's is checked; mu and inv
+   within atol/rtol 1e-5 (f32) and 1e-3 (bf16) of ``block_stats`` of the
+   plain output; times of K2, of K1 + ``block_stats``, and of the plain version.
+5. K3 (``ema_normalize``) on the rows of one serving batch (8 ten-hour
+   nights x 4 modalities, each at its grid rate) in one launch: over the
+   whole length against the native host f64 recurrence (atol 5e-3 plus
+   1e-3 of |z|, see ``EMA_HOST_RTOL``), and on
+   the first 65,536 samples against ``ema_normalize_reference`` on the card
+   (atol 1e-4; the warm-up window of the prefix equals the full row's, which
+   is checked); median time per forward.
+6. Model: the recorded goldens (tests/goldens) on the card; the flagship at
+   full width (f32, 2 one-hour nights, seeded random weights) on the kernel
+   path against the plain path, 80 K1 launches per forward; the flagship bf16
+   forward on 8 ten-hour nights with kernel statistics off and on (80 K1 and
+   0 K2 launches, then 0 and 80), logits within twice the forward's own
+   bf16-vs-f32 difference, times in the order off, on, on, off.
+7. Serve q8: ``StreamingPipelineQ8`` in bf16, batch 8, on 16 ten-hour nights
+   (one with an absent modality), the nights mu-law encoded up front
+   (``mulaw_q8``) and handed over by a small extractor; 2 passes.
+8. Serve f32, causal: 16 ten-hour EDF nights (ECG and Pleth at 256 Hz, Thor
+   and Abdo at 32 Hz, one without Thor) written with the port's
+   ``write_edf`` (set-up, not timed), served by ``StreamingPipeline(
+   normalize='causal', precision='bfloat16', batch_size=8)`` with host decode
+   in the loop: 2 passes, then 1 pass in the kernel-statistics configuration,
+   then 1 untimed pass with ``normalize='zscore'``. Every hypnogram has 1,200
+   epochs in 0..3; the launch counts of K1, K2 and K3 are asserted.
 
-The line before the last is a JSON object describing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.
+Serving throughput is all nights served over all the time the passes took,
+the first pass included. Each path's kernel launches are counted from 0 just
+before it runs. The line before the last is a JSON object describing the
+kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,15 +55,19 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from wav2sleep_tpu_torch.pipeline import grid_length
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SIGNALS = ('ECG', 'PPG', 'ABD', 'THX')
 # (C_in, C_out, stride, T): every K1 shape of the flagship encoders, at its
 # first (longest) length in the ECG encoder for ten-hour nights.
@@ -66,9 +90,29 @@ F32_TOL = 1e-4
 # rounds phi(x) to bf16 before the conv (2**-9 relative per term, which adds
 # up to about 2**-9 of rms(y)). 2**-6 leaves a margin of 2-4 bf16 ulps.
 BF16_TOL = 2.0**-6
+STATS_TOL = {'float32': 1e-5, 'bfloat16': 1e-3}  # K2's mu, inv vs block_stats of the plain y
+# K3 vs the f64 host recurrence over whole rows: |d| <= EMA_HOST_TOL +
+# EMA_HOST_RTOL |z|. 5e-3 is the JAX package's bound (tests/data/
+# test_pallas_ema.py, 20,000 samples). Over whole ten-hour rows an f32
+# recurrence also carries the f32 rounding of its rates: alpha and 1 - alpha
+# stored in f32 need not sum to 1, and the recurrences then settle with a
+# relative bias of up to 2**-25 / alpha in their state (9e-4 for sigma**2 at
+# the ECG rate, alpha_v = 1 / (900 s x 34.13 Hz)), about half that in z; so
+# a relative term of 1e-3, which matters where |z| is large (artifacts).
+EMA_HOST_TOL, EMA_HOST_RTOL = 5e-3, 1e-3
+EMA_PLAIN_TOL = 1e-4  # K3 vs its plain version, both f32
+EMA_PREFIX = 65_536
 MODEL_TOL = 1e-3  # f32 logits, kernel path vs plain path, atol and rtol
 GOLDEN_TOL = 5e-4  # as the JAX package's golden replay
+NORM_EPS = 1e-2  # the encoders' instance-norm eps
 BATCH, NIGHTS, HOURS = 8, 16, 10.0
+# Published H100 SXM peaks (dense): HBM bytes/s; FLOP/s of f32 outside the
+# tensor cores and of bf16 in them.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+# EDF channels of the served nights: label -> (rate Hz, physical range).
+EDF_CHANNELS = {'ECG': (256.0, (-5.0, 5.0)), 'Pleth': (256.0, (-100.0, 100.0)),
+                'Thor': (32.0, (-10.0, 10.0)), 'Abdo': (32.0, (-10.0, 10.0))}
 
 
 def log(*args):
@@ -100,16 +144,66 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_kernel(torch, k1, block_stats):
-    """K1 vs plain at every flagship shape; returns (max f32 |d|, largest-call times)."""
+def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    """Least time in ms the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak for the dtype."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def conv_bound(B, T, ci, co, stride, dtype_name, fused: bool, stats: bool) -> tuple[float, str]:
+    """Bound of one K1 / K2 call: x, w, bias (and mu, inv in) read once, y
+    (and mu, inv out) written once; the conv's multiply-adds, 2 FLOPs each."""
+    item = 4 if dtype_name == 'float32' else 2
+    t_out = (T - 1) // stride + 1
+    n_bytes = (B * T * ci + 3 * ci * co + co + B * t_out * co) * item
+    n_bytes += 2 * B * ci * 4 if fused else 0
+    n_bytes += 2 * B * co * 4 if stats else 0
+    return bound(n_bytes, 2 * 3 * ci * co * t_out * B, dtype_name)
+
+
+def counts(k1, k3) -> dict:
+    return {'K1': k1.LAUNCHES, 'K2': k1.STATS_LAUNCHES, 'K3': k3.LAUNCHES}
+
+
+def zero_counts(k1, k3) -> None:
+    k1.LAUNCHES = k1.STATS_LAUNCHES = k3.LAUNCHES = 0
+
+
+def phase_build(k1, k3, native):
+    """Build the two kernel libraries and the native host library at once."""
+
+    def timed(name, fn):
+        t0 = time.time()
+        fn()
+        return name, time.time() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(timed, n, f) for n, f in (
+            ('conv_k3.cu (K1, K2)', k1.build), ('ema_norm.cu (K3)', k3.build), ('native host library', native.build))]
+        done = [f.result() for f in futures]  # raises if a build failed
+    log('build: ' + ', '.join(f'{n} {s:.1f} s' for n, s in done))
+    for name, mod in (('conv_k3.cu', k1), ('ema_norm.cu', k3)):
+        text = mod.BUILD_LOG
+        regs = [int(v) for v in re.findall(r'Used (\d+) registers', text)]
+        smem = [int(v) for v in re.findall(r'(\d+) bytes smem', text)]
+        spills = sum(int(v) for v in re.findall(r'(\d+) bytes spill stores', text))
+        if regs:
+            log(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, '
+                f'{min(smem, default=0)}-{max(smem, default=0)} bytes static smem, {spills} bytes spilled')
+
+
+def phase_k1(torch, F, k1, block_stats):
+    """K1 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    max_f32_err, largest = 0.0, None
+    max_f32_err, line = 0.0, None
     for ci, co, stride, T in KERNEL_SHAPES:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
         b32 = torch.randn((co,), device='cuda', generator=gen) * 0.1
-        mu, inv = block_stats(x32, 1e-2)
+        mu, inv = block_stats(x32, NORM_EPS)
         for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
             x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
             for phi, args in (('identity', (b, None, None, stride, None)),
                               ('norm+gelu', (None, mu, inv, stride, 'gelu'))):
@@ -127,37 +221,186 @@ def phase_kernel(torch, k1, block_stats):
                         x.double(), w.double(), *(None if a is None else a.double() for a in args[:3]), *args[3:]
                     )
                     err64 = float((got.double() - exact).abs().max())
-                    plain64 = float((want.double() - exact).abs().max())
                     del exact
                     ok = bool((diff <= F32_TOL + F32_TOL * want.float().abs()).all()) and err64 <= F32_TOL
                     max_f32_err = max(max_f32_err, err)
-                    tol = f'atol=rtol={F32_TOL:g}; vs f64: kernel {err64:.2e}, plain {plain64:.2e}'
+                    tol = f'atol=rtol={F32_TOL:g}, vs f64 {err64:.1e}'
                 else:
                     ref = want.float()
-                    bound = BF16_TOL * (ref.abs() + ref.square().mean().sqrt())
-                    ok = bool((diff <= bound).all())
-                    tol = f'<= 2^-6 (|y|+rms y)'
-                ms = cuda_ms(lambda: k1.conv_k3(x, w, *args))
-                plain_ms = cuda_ms(lambda: k1.conv_k3_reference(x, w, *args))
-                name = 'f32' if dtype == torch.float32 else 'bf16'
-                log(f'K1 {name:4s} {phi:9s} {ci:3d}->{co:3d} s{stride} B={BATCH} T={T}: '
-                    f'max|d|={err:.3e} ({tol}) {"ok" if ok else "FAIL"}; '
-                    f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+                    ok = bool((diff <= BF16_TOL * (ref.abs() + ref.square().mean().sqrt())).all())
+                    tol = '<=2^-6(|y|+rms)'
                 if not ok:
                     raise AssertionError(f'K1 disagrees with its plain version at {ci}->{co} s{stride} {name} {phi}')
-                if (ci, co, stride, dtype, phi) == (16, 16, 1, torch.bfloat16, 'norm+gelu'):
-                    largest = (ms, plain_ms)
+                ms = cuda_ms(lambda: k1.conv_k3(x, w, *args))
+                plain_ms = cuda_ms(lambda: k1.conv_k3_reference(x, w, *args))
+                lib_ms = None
+                if phi == 'identity':
+                    w_oik = w.permute(2, 1, 0).contiguous()
+                    lib = F.conv1d(x.transpose(1, 2), w_oik, b, stride=stride, padding=1).transpose(1, 2)
+                    if not torch.allclose(lib.float(), want.float(), atol=1e-2, rtol=1e-2):
+                        raise AssertionError(f'F.conv1d is not the same function at {ci}->{co} s{stride} {name}')
+                    del lib
+                    lib_ms = cuda_ms(lambda: F.conv1d(x.transpose(1, 2), w_oik, b, stride=stride, padding=1))
+                bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', False)
+                log(f'K1 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok; '
+                    f'K1 {ms:.4f} ms, plain {plain_ms:.4f}, F.conv1d '
+                    f'{"-" if lib_ms is None else f"{lib_ms:.4f}"}, bound {bound_ms:.4f} ({bound_by})')
+                if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'identity'):
+                    line = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
                 del got, want, diff
         del x32, x, mu, inv
         torch.cuda.empty_cache()
-    return max_f32_err, largest
+    return max_f32_err, line
 
 
-def phase_model(torch, k1, layers, wav2sleep):
-    """Goldens on the card, then the full-width flagship on both paths."""
-    root = os.path.dirname(os.path.abspath(__file__))
+def phase_k2(torch, k1, block_stats):
+    """K2 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    max_f32_err, line = 0.0, None
+    for ci, co, stride, T in KERNEL_SHAPES:
+        x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
+        w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
+        b32 = torch.randn((co,), device='cuda', generator=gen) * 0.1 + 0.5
+        mu, inv = block_stats(x32, NORM_EPS)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+            for phi, args in (('identity', (b, None, None, stride, None)),
+                              ('norm+gelu', (b, mu, inv, stride, 'gelu'))):
+                y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, NORM_EPS)
+                want = k1.conv_k3_reference(x, w, *args)
+                mu_p, inv_p = block_stats(want, NORM_EPS)
+                torch.cuda.synchronize()
+                diff = (y.float() - want.float()).abs()
+                tol = STATS_TOL[name]
+                stats_ok = all(bool(((a - e).abs() <= tol + tol * e.abs()).all()) for a, e in ((mu_k, mu_p), (inv_k, inv_p)))
+                err = max(float(diff.max()), float((mu_k - mu_p).abs().max()), float((inv_k - inv_p).abs().max()))
+                if dtype == torch.float32:
+                    y_ok = bool((diff <= F32_TOL + F32_TOL * want.float().abs()).all())
+                    max_f32_err = max(max_f32_err, err)
+                else:
+                    ref = want.float()
+                    y_ok = bool((diff <= BF16_TOL * (ref.abs() + ref.square().mean().sqrt())).all())
+                if not (y_ok and stats_ok):
+                    raise AssertionError(f'K2 disagrees with its plain version at {ci}->{co} s{stride} {name} {phi} '
+                                         f'(y ok {y_ok}, stats ok {stats_ok})')
+
+                def k1_then_stats():
+                    return block_stats(k1.conv_k3(x, w, *args), NORM_EPS)
+
+                ms = cuda_ms(lambda: k1.conv_k3_stats(x, w, *args, NORM_EPS))
+                k1_stats_ms = cuda_ms(k1_then_stats)
+                plain_ms = cuda_ms(lambda: k1.conv_k3_stats_reference(x, w, *args, NORM_EPS))
+                bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', True)
+                log(f'K2 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d| y {float(diff.max()):.2e}, '
+                    f'mu {float((mu_k - mu_p).abs().max()):.2e}, inv {float((inv_k - inv_p).abs().max()):.2e} ok; '
+                    f'K2 {ms:.4f} ms, K1+block_stats {k1_stats_ms:.4f}, plain {plain_ms:.4f}, '
+                    f'bound {bound_ms:.4f} ({bound_by})')
+                if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'norm+gelu'):
+                    line = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                del y, want, diff
+        del x32, x, mu, inv
+        torch.cuda.empty_cache()
+    return max_f32_err, line
+
+
+def serving_rows(torch, seed: int) -> list:
+    """One serving batch of f32 rows per modality, on the card: 8 ten-hour
+    nights at each modality's grid rate; a drifting oscillation plus noise,
+    with a few outliers."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    rows = []
+    for col in SIGNALS:
+        n = grid_length(col, HOURS)
+        t = torch.arange(n, device='cuda', dtype=torch.float32) / n
+        amp = torch.rand((BATCH, 1), device='cuda', generator=g) * 2 + 0.1
+        freq = torch.rand((BATCH, 1), device='cuda', generator=g) * 4000 + 500
+        x = amp * torch.sin(freq * t) + 0.5 * torch.sin(7 * t) + 0.2 * torch.randn((BATCH, n), device='cuda', generator=g)
+        spikes = torch.randint(0, n, (BATCH, 4), device='cuda', generator=g)
+        x.scatter_(1, spikes, 25.0)
+        rows.append(x.contiguous())
+    return rows
+
+
+def phase_k3(torch, k3, settings):
+    """K3 on one serving batch's rows; returns (max |d| vs plain, the line's call, ms per forward)."""
+    fss = [settings.COLS_TO_SAMPLES_PER_EPOCH[c] / settings.EPOCH_SECONDS for c in SIGNALS]
+    args = dict(tau_seconds=settings.CAUSAL_NORM_TAU_SECONDS,
+                baseline_tau_seconds=settings.CAUSAL_NORM_BASELINE_TAU_SECONDS)
+    xs = serving_rows(torch, seed=3)
+    got = k3.ema_normalize(xs, fss, **args)
+    torch.cuda.synchronize()
+    # (a) Whole rows against the host f64 recurrence.
+    err_host = err_small = rel_host = ratio = 0.0
+    for x, z, fs in zip(xs, got, fss):
+        for i in range(BATCH):
+            want = k3.ema_normalize_host(x[i].cpu().numpy(), fs, **args)
+            d = np.abs(z[i].cpu().numpy() - want)
+            err_host = max(err_host, float(d.max()))
+            err_small = max(err_small, float(d[np.abs(want) <= 4].max()))
+            rel_host = max(rel_host, float((d / np.maximum(np.abs(want), 1.0)).max()))
+            ratio = max(ratio, float((d / (EMA_HOST_TOL + EMA_HOST_RTOL * np.abs(want))).max()))
+    log(f'K3 whole rows ({", ".join(f"{BATCH}x{x.shape[1]}" for x in xs)}) vs host f64: max|d|={err_host:.3e}, '
+        f'where |z|<=4 {err_small:.3e}, max|d|/max(|z|,1)={rel_host:.3e} '
+        f'(|d| <= {EMA_HOST_TOL:g} + {EMA_HOST_RTOL:g}|z|: worst {ratio:.3f} of the bound)')
+    if not ratio <= 1.0:
+        raise AssertionError(f'K3 disagrees with the host f64 recurrence: {ratio:.3f} of the bound')
+    # (b) The first EMA_PREFIX samples against the plain version on the card.
+    for x, fs in zip(xs, fss):
+        full, prefix = (k3.warmup_length(n, fs, **args) for n in (x.shape[1], EMA_PREFIX))
+        if full != prefix:
+            raise AssertionError(f'warm-up window of the prefix {prefix} != the full row\'s {full}')
+    heads = [x[:, :EMA_PREFIX].contiguous() for x in xs]
+    head_k = k3.ema_normalize(heads, fss, **args)
+    t0 = time.time()
+    head_p = k3.ema_normalize_reference(heads, fss, **args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)  # one run: the plain loop takes seconds
+    err_plain = max(float((a - e).abs().max()) for a, e in zip(head_k, head_p))
+    err_prefix = max(float((a - z[:, :EMA_PREFIX]).abs().max()) for a, z in zip(head_k, got))
+    log(f'K3 first {EMA_PREFIX} samples of {4 * BATCH} rows: vs plain max|d|={err_plain:.3e} '
+        f'(atol {EMA_PLAIN_TOL:g}); vs the whole rows\' first samples max|d|={err_prefix:.3e}')
+    if not err_plain <= EMA_PLAIN_TOL or err_prefix != 0.0:
+        raise AssertionError('K3 disagrees with its plain version on the prefix')
+    ms_prefix = cuda_ms(lambda: k3.ema_normalize(heads, fss, **args), reps=5, warmup=1)
+    ms_forward = cuda_ms(lambda: k3.ema_normalize(xs, fss, **args), reps=5, warmup=1)
+    per_modality = [cuda_ms(lambda: k3.ema_normalize([x], [fs], **args), reps=3, warmup=1) for x, fs in zip(xs, fss)]
+    log('K3 per modality alone (ms): ' + ', '.join(f'{c} {t:.3f}' for c, t in zip(SIGNALS, per_modality)))
+    rows_prefix = 4 * BATCH * EMA_PREFIX
+    bound_ms, bound_by = bound(rows_prefix * 8, rows_prefix * 14, 'float32')
+    fwd_bound, _ = bound(sum(x.numel() for x in xs) * 8, sum(x.numel() for x in xs) * 14, 'float32')
+    log(f'K3 prefix ({4 * BATCH} rows x {EMA_PREFIX}): kernel {ms_prefix:.3f} ms, plain {plain_ms:.1f} ms '
+        f'(one run), bound {bound_ms:.4f} ms ({bound_by}); one forward\'s rows '
+        f'({sum(x.numel() for x in xs)} samples, one launch): {ms_forward:.3f} ms, bound {fwd_bound:.4f} ms')
+    line = dict(ms=ms_prefix, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return err_plain, line, ms_forward
+
+
+@contextlib.contextmanager
+def plain_convs(layers, k1):
+    """Route the model's K1 / K2 convs to their plain versions, for an A/B
+    of the same model on the same inputs."""
+    layers.conv_k3, layers.conv_k3_stats = k1.conv_k3_reference, k1.conv_k3_stats_reference
+    try:
+        yield
+    finally:
+        layers.conv_k3, layers.conv_k3_stats = k1.conv_k3, k1.conv_k3_stats
+
+
+@contextlib.contextmanager
+def kernel_stats(bd, on: bool):
+    bd.KERNEL_STATS = on
+    try:
+        yield
+    finally:
+        bd.KERNEL_STATS = None
+
+
+def phase_model(torch, k1, k3, bd, layers, wav2sleep):
+    """Goldens on the card, the full-width flagship on both conv paths, and
+    the bf16 serving-size forward with kernel statistics off and on."""
     for name in ('wav2sleep_cardio', 'wav2sleep_eog'):
-        data = np.load(os.path.join(root, 'tests', 'goldens', f'{name}.npz'))
+        data = np.load(os.path.join(ROOT, 'tests', 'goldens', f'{name}.npz'))
         cfg = json.loads(bytes(data['config_json']).decode())
         model = wav2sleep.build_wav2sleep(
             cfg['num_classes'], cfg['signal_map'], cfg['encoders'], cfg['epoch_mixer'], cfg['sequence_mixer']
@@ -165,16 +408,13 @@ def phase_model(torch, k1, layers, wav2sleep):
         model.load_state_dict({k[3:]: torch.from_numpy(data[k]) for k in data.files if k.startswith('sd/')})
         model = model.cuda().eval()
         x = {k[3:]: torch.from_numpy(data[k]).cuda() for k in data.files if k.startswith('in/')}
-        before = k1.LAUNCHES
         with torch.inference_mode():
             logits = model(x).cpu().numpy()
         err = float(np.abs(logits - data['logits']).max())
-        log(f'golden {name}: max|d|={err:.3e} vs recorded logits (atol=rtol={GOLDEN_TOL:g}), '
-            f'K1 launches {k1.LAUNCHES - before}')
+        log(f'golden {name}: max|d|={err:.3e} vs recorded logits (atol=rtol={GOLDEN_TOL:g})')
         np.testing.assert_allclose(logits, data['logits'], atol=GOLDEN_TOL, rtol=GOLDEN_TOL)
 
-    gen = torch.Generator().manual_seed(0)
-    model = wav2sleep.flagship_model(device='cuda', dtype=torch.float32, generator=gen)
+    model = wav2sleep.flagship_model(dtype=torch.float32, generator=torch.Generator().manual_seed(0))
     S = 120  # one-hour nights
     g = torch.Generator(device='cuda').manual_seed(1)
     x = {c: torch.randn((2, grid_length(c, 1.0)), device='cuda', generator=g) for c in SIGNALS}
@@ -182,34 +422,54 @@ def phase_model(torch, k1, layers, wav2sleep):
     if sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D)) != 80:
         raise AssertionError('expected 80 kernel-eligible convs in the flagship')
     with torch.inference_mode():
-        before = k1.LAUNCHES
+        zero_counts(k1, k3)
         kern = model(x)
         torch.cuda.synchronize()
-        launches = k1.LAUNCHES - before
+        launches = counts(k1, k3)
         with plain_convs(layers, k1):
-            before = k1.LAUNCHES
+            zero_counts(k1, k3)
             plain = model(x)
             torch.cuda.synchronize()
-            plain_launches = k1.LAUNCHES - before
+            plain_launches = counts(k1, k3)
     err = float((kern - plain).abs().max())
     log(f'flagship f32 B=2 S={S}: logits {tuple(kern.shape)}, kernel vs plain max|d|={err:.3e} '
-        f'(atol=rtol={MODEL_TOL:g}); K1 launches per forward: {launches} (plain path: {plain_launches})')
-    if launches != 80 or plain_launches != 0:
-        raise AssertionError(f'K1 launches per forward {launches} (plain {plain_launches}), expected 80 (0)')
+        f'(atol=rtol={MODEL_TOL:g}); launches per forward {launches} (plain path: {plain_launches})')
+    if launches['K1'] != 80 or plain_launches['K1'] != 0 or launches['K2'] != 0:
+        raise AssertionError(f'launches per forward {launches} (plain {plain_launches}), expected 80 K1 (0)')
     if kern.shape != (2, S, 4) or not bool(torch.isfinite(kern).all()):
         raise AssertionError('flagship logits have the wrong shape or are not finite')
     torch.testing.assert_close(kern, plain, atol=MODEL_TOL, rtol=MODEL_TOL)
 
-
-@contextlib.contextmanager
-def plain_convs(layers, k1):
-    """Route the model's K1 convs to the plain version, for an A/B of the
-    same model on the same inputs."""
-    layers.conv_k3 = k1.conv_k3_reference
-    try:
-        yield
-    finally:
-        layers.conv_k3 = k1.conv_k3
+    # Serving size, bf16: kernel statistics off and on.
+    g = torch.Generator(device='cuda').manual_seed(2)
+    xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).to(torch.bfloat16)
+          for c in SIGNALS}
+    out, seen = {}, {}
+    with torch.inference_mode():
+        for on in (False, True):
+            with kernel_stats(bd, on):
+                zero_counts(k1, k3)
+                out[on] = model(xb)
+                torch.cuda.synchronize()
+                seen[on] = counts(k1, k3)
+        ref32 = model({c: v.float() for c, v in xb.items()})
+        times = {False: [], True: []}
+        for on in (False, True, True, False):
+            with kernel_stats(bd, on):
+                times[on].append(cuda_ms(lambda: model(xb), reps=3, warmup=1))
+    if seen[False] != {'K1': 80, 'K2': 0, 'K3': 0} or seen[True] != {'K1': 0, 'K2': 80, 'K3': 0}:
+        raise AssertionError(f'launches per bf16 forward: stats off {seen[False]}, on {seen[True]}')
+    d_stats = float((out[True] - out[False]).abs().max())
+    d_bf16 = float((out[False] - ref32).abs().max())
+    agree = float((out[True].argmax(-1) == out[False].argmax(-1)).float().mean())
+    log(f'flagship bf16 B={BATCH} x {HOURS:g} h: kernel stats on vs off max|d logits|={d_stats:.3e} '
+        f'(bound 2 x the forward\'s bf16-vs-f32 difference {d_bf16:.3e}), argmax agreement {agree:.5f}; '
+        f'launches off {seen[False]}, on {seen[True]}; forward ms off '
+        f'{", ".join(f"{t:.2f}" for t in times[False])}, on {", ".join(f"{t:.2f}" for t in times[True])} '
+        f'(run off, on, on, off)')
+    if not bool(torch.isfinite(out[True]).all()) or not d_stats <= 2 * d_bf16:
+        raise AssertionError('kernel-statistics logits are not finite or not within the bound')
+    return times
 
 
 def mulaw_q8(wave: np.ndarray) -> tuple[np.ndarray, float]:
@@ -263,55 +523,144 @@ class SyntheticQ8Nights:
         return self.n_epochs
 
 
-def phase_serve(torch, k1, layers, wav2sleep, pipeline, card):
-    t0 = time.time()
-    nights = SyntheticQ8Nights(NIGHTS, HOURS, seed=0, absent={5: ('THX',)})
-    log(f'serve: encoded {NIGHTS} nights of {HOURS:g} h on the host in {time.time() - t0:.1f} s (set-up)')
-    model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
-    pipe = pipeline.StreamingPipelineQ8(
-        model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
-        device='cuda', extractor=nights,
-    )
-    pipe.warmup()
-    names = sorted(nights.nights)
-    torch.cuda.reset_peak_memory_stats()
-    k1.LAUNCHES = 0
-    walls, passes = [], 3
+def check_hypnograms(out, names, n_epochs, what):
+    if [fp for fp, _ in out] != names:
+        raise AssertionError(f'{what}: nights missing from the output')
+    for fp, hyp in out:
+        if hyp.shape != (n_epochs,) or hyp.min() < 0 or hyp.max() > 3:
+            raise AssertionError(f'{what}: bad hypnogram for {fp}: shape {hyp.shape}, range {hyp.min()}..{hyp.max()}')
+
+
+def timed_passes(torch, pipe, names, passes):
+    walls, out = [], None
     for _ in range(passes):
         t0 = time.perf_counter()
         out = list(pipe.run(names))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = k1.LAUNCHES
-    if [fp for fp, _ in out] != names:
-        raise AssertionError('serve: nights missing from the output')
-    for fp, hyp in out:
-        if hyp.shape != (nights.n_epochs,) or hyp.min() < 0 or hyp.max() > 3:
-            raise AssertionError(f'serve: bad hypnogram for {fp}: shape {hyp.shape}, range {hyp.min()}..{hyp.max()}')
-    expected = 80 * passes * (-(-NIGHTS // BATCH))
-    if launches != expected:
-        raise AssertionError(f'serve: K1 launches {launches}, expected {expected}')
-    # All nights served over all the time the passes took, the first included.
+    return walls, out
+
+
+def phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card):
+    t0 = time.time()
+    nights = SyntheticQ8Nights(NIGHTS, HOURS, seed=0, absent={5: ('THX',)})
+    log(f'serve q8: encoded {NIGHTS} nights of {HOURS:g} h on the host in {time.time() - t0:.1f} s (set-up)')
+    model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
+    pipe = pipeline.StreamingPipelineQ8(
+        model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16', extractor=nights,
+    )
+    pipe.warmup()
+    names = sorted(nights.nights)
+    torch.cuda.reset_peak_memory_stats()
+    passes = 2
+    zero_counts(k1, k3)
+    walls, out = timed_passes(torch, pipe, names, passes)
+    launches = counts(k1, k3)
+    check_hypnograms(out, names, nights.n_epochs, 'serve q8')
+    batches = passes * -(-NIGHTS // BATCH)
+    if launches != {'K1': 80 * batches, 'K2': 0, 'K3': 0}:
+        raise AssertionError(f'serve q8: launches {launches}, expected {80 * batches} K1')
     total = sum(walls)
     log(f'serve q8 bf16 batch {BATCH}: {passes} passes of {NIGHTS} nights x {HOURS:g} h in '
         f'{", ".join(f"{w:.3f}" for w in walls)} s: {passes * NIGHTS} nights in {total:.3f} s, '
-        f'{passes * NIGHTS / total:.2f} nights/s, {3600 * passes * NIGHTS / total:.0f} recordings/hour '
-        f'on {card}; K1 launches {launches}; '
+        f'{3600 * passes * NIGHTS / total:.0f} recordings/hour on {card}; launches {launches}; '
         f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
 
     # One batch's forward from the pooled pinned codes (H2D copy included),
     # kernel vs plain path.
     slot = pipe._slots[0]
     for i, fp in enumerate(names[:BATCH]):
-        nights.extract_into(fp, slot.codes_np, slot.meta, i)
+        nights.extract_into(fp, slot.rows_np, slot.meta, i)
     times = {'kernel': [], 'plain': []}
     for path in ('kernel', 'plain', 'plain', 'kernel'):
         with plain_convs(layers, k1) if path == 'plain' else contextlib.nullcontext():
             times[path].append(cuda_ms(lambda: pipe._launch(slot), reps=5, warmup=1))
-    log(f'forward bf16 B={BATCH} x {HOURS:g} h from pinned codes: K1 path '
+    log(f'forward q8 bf16 B={BATCH} x {HOURS:g} h from pinned codes: K1 path '
         f'{", ".join(f"{t:.2f}" for t in times["kernel"])} ms, plain path '
         f'{", ".join(f"{t:.2f}" for t in times["plain"])} ms (run kernel, plain, plain, kernel)')
-    return launches
+
+
+def write_nights(folder: str, n_nights: int, hours: float, seed: int, absent: dict) -> list[str]:
+    """Seeded EDF nights with MESA-like channels and rates (``EDF_CHANNELS``),
+    written with the port's ``write_edf`` in 30-second records."""
+    from wav2sleep_tpu_torch.data.edf import write_edf
+
+    fps = []
+    for i in range(n_nights):
+        rng = np.random.default_rng(seed + i)
+        sigs, rates, ranges = {}, {}, {}
+        for label, (fs, (lo, hi)) in EDF_CHANNELS.items():
+            if label in absent.get(i, ()):
+                continue
+            n = int(hours * 3600 * fs)
+            t = np.arange(n, dtype=np.float32) / np.float32(fs)
+            wave = np.sin(t * np.float32(rng.uniform(0.5, 8.0))) * np.float32(0.3 * hi)
+            wave += rng.standard_normal(n, dtype=np.float32) * np.float32(0.05 * hi)
+            sigs[label], rates[label], ranges[label] = wave, fs, (lo, hi)
+        fp = os.path.join(folder, f'night{i:02d}.edf')
+        write_edf(fp, sigs, rates, units={'ECG': 'mV'}, physical_ranges=ranges, record_duration=30.0)
+        fps.append(fp)
+    return fps
+
+
+def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card):
+    """The f32 transport with causal normalization, host EDF decode in the
+    loop; returns the launch counts of its main path and of the
+    kernel-statistics configuration."""
+    n_epochs = int(round(HOURS * 120))
+    build_dir = os.path.join(ROOT, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as folder:
+        t0 = time.time()
+        fps = write_nights(folder, NIGHTS, HOURS, seed=10, absent={5: ('Thor',)})
+        log(f'serve f32: wrote {NIGHTS} EDF nights of {HOURS:g} h ({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) '
+            f'with write_edf in {time.time() - t0:.1f} s (set-up)')
+        model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
+        pipe = pipeline.StreamingPipeline(
+            model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
+            normalize='causal', device='cuda',
+        )
+        if pipe.decoder._lib is None:
+            raise AssertionError('serve f32: the native host library is not in use')
+        pipe.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        passes, batches = 2, -(-NIGHTS // BATCH)
+        pipe.fill_seconds = 0.0
+        zero_counts(k1, k3)
+        walls, out = timed_passes(torch, pipe, fps, passes)
+        main = counts(k1, k3)
+        check_hypnograms(out, fps, n_epochs, 'serve f32')
+        if main != {'K1': 80 * passes * batches, 'K2': 0, 'K3': passes * batches}:
+            raise AssertionError(f'serve f32: launches {main}')
+        total = sum(walls)
+        log(f'serve f32 causal bf16 batch {BATCH}: {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
+            f'{", ".join(f"{w:.3f}" for w in walls)} s: {passes * NIGHTS} nights in {total:.3f} s, '
+            f'{3600 * passes * NIGHTS / total:.0f} recordings/hour on {card}; producer decoding '
+            f'{pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the wall); launches {main}; '
+            f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+
+        with kernel_stats(bd, True):
+            pipe.fill_seconds = 0.0
+            zero_counts(k1, k3)
+            walls_s, out_s = timed_passes(torch, pipe, fps, 1)
+            stats = counts(k1, k3)
+        check_hypnograms(out_s, fps, n_epochs, 'serve f32, kernel statistics')
+        if stats != {'K1': 0, 'K2': 80 * batches, 'K3': batches}:
+            raise AssertionError(f'serve f32, kernel statistics: launches {stats}')
+        agree = np.mean(np.concatenate([a == b for (_, a), (_, b) in zip(out, out_s)]))
+        log(f'serve f32 causal, kernel statistics on: 1 pass in {walls_s[0]:.3f} s '
+            f'({3600 * NIGHTS / walls_s[0]:.0f} recordings/hour); launches {stats}; epochs agreeing with '
+            f'the statistics-off pass {agree:.5f}')
+
+        zpipe = pipeline.StreamingPipeline(
+            model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
+            normalize='zscore', device='cuda',
+        )
+        zero_counts(k1, k3)
+        out_z = list(zpipe.run(fps))
+        check_hypnograms(out_z, fps, n_epochs, 'serve f32 zscore')
+        log(f'serve f32 zscore: 1 untimed pass, {len(out_z)} valid hypnograms; launches {counts(k1, k3)}')
+    return main, stats
 
 
 def main() -> int:
@@ -319,10 +668,13 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA card')
-    from wav2sleep_tpu_torch import pipeline
+    import torch.nn.functional as F
+
+    from wav2sleep_tpu_torch import native, pipeline, settings
     from wav2sleep_tpu_torch.models import layers, wav2sleep
+    from wav2sleep_tpu_torch.ops import block_domain as bd
     from wav2sleep_tpu_torch.ops import conv_k3 as k1
-    from wav2sleep_tpu_torch.ops.block_domain import block_stats
+    from wav2sleep_tpu_torch.ops import ema_norm as k3
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -331,28 +683,32 @@ def main() -> int:
     log(f'device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}')
     log(f'nvidia-smi: {card}')
 
-    t0 = time.time()
-    k1.build()
-    log(f'build: conv_k3 in {time.time() - t0:.1f} s')
-    for line in k1.BUILD_LOG.splitlines():
-        if 'registers' in line or 'spill' in line.lower():
-            log('  ptxas: ' + line.strip())
-
+    phase_build(k1, k3, native)
     with torch.inference_mode():
-        max_err, (ms, plain_ms) = phase_kernel(torch, k1, block_stats)
-    phase_model(torch, k1, layers, wav2sleep)
-    launches = phase_serve(torch, k1, layers, wav2sleep, pipeline, card)
+        k1_err, k1_line = phase_k1(torch, F, k1, bd.block_stats)
+        k2_err, k2_line = phase_k2(torch, k1, bd.block_stats)
+        k3_err, k3_line, _ = phase_k3(torch, k3, settings)
+    phase_model(torch, k1, k3, bd, layers, wav2sleep)
+    phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card)
+    main_counts, stats_counts = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card)
 
-    kernels = [{
-        'name': 'conv_k3',
-        'route': 'cuda',
-        'source': 'wav2sleep_tpu_torch/csrc/conv_k3.cu',
-        'replaces': 'wav2sleep_tpu/ops/pallas_conv.py:136',
-        'launches': launches,
-        'max_abs_err': max_err,  # largest |kernel - plain| over the f32 checks
-        'ms': ms,  # bf16 16->16 s1 norm+gelu, B=8, T=1,228,800 (the largest call)
-        'plain_ms': plain_ms,
-    }]
+    source = 'wav2sleep_tpu_torch/csrc/'
+    kernels = [
+        # K1 line: bf16, identity phi, 16->16 s1, B=8, T=1,228,800;
+        # launches: the f32 causal serving path.
+        dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
+             replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
+             max_abs_err=k1_err, **k1_line),
+        # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
+        # launches: the same path in the kernel-statistics configuration.
+        dict(name='conv_k3_stats', route='cuda', source=source + 'conv_k3.cu',
+             replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=stats_counts['K2'],
+             max_abs_err=k2_err, **k2_line),
+        # K3 line: the first 65,536 samples of one serving batch's 32 rows.
+        dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',
+             replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
+             max_abs_err=k3_err, **k3_line),
+    ]
     log(f'nvidia-smi: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

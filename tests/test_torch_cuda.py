@@ -1,4 +1,5 @@
-"""K1's CUDA kernel against its plain PyTorch version, on an NVIDIA card.
+"""The port's CUDA kernels against their plain PyTorch versions, on an
+NVIDIA card: K1 and K2 (``ops/conv_k3.py``) and K3 (``ops/ema_norm.py``).
 
 Every case is marked ``cuda`` and skips without a card. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -10,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from wav2sleep_tpu_torch.models import layers
+from wav2sleep_tpu_torch.ops import block_domain as bd
 from wav2sleep_tpu_torch.ops import conv_k3 as k1
+from wav2sleep_tpu_torch.ops import ema_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +107,71 @@ def test_kernel_refuses_what_it_does_not_take(card):
         k1.conv_k3(x.transpose(0, 1).contiguous().transpose(0, 1), w)
     with pytest.raises(ValueError, match='on cpu'):
         k1.conv_k3(x, w.cpu())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,T,ci,co,stride', CASES)
+def test_k2_matches_plain(card, B, T, ci, co, stride, dtype):
+    """K2's y as K1's; its statistics equal block_stats over its own stored
+    y (rtol/atol 1e-5: the same values, reduced in another order)."""
+    x, w, b, mu, inv = _inputs(B, T, ci, co, card, seed=B * T + ci + co + stride + 1)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    for args in ((b, None, None, stride, None), (b, mu, inv, stride, 'gelu')):
+        before = k1.STATS_LAUNCHES, k1.LAUNCHES
+        y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, 1e-2)
+        assert (k1.STATS_LAUNCHES, k1.LAUNCHES) == (before[0] + 1, before[1])
+        torch.testing.assert_close(y, k1.conv_k3(x, w, *args), rtol=0, atol=0)
+        assert mu_k.shape == inv_k.shape == (B, co) and mu_k.dtype == torch.float32
+        mu_r, inv_r = bd.block_stats(y, 1e-2)
+        torch.testing.assert_close(mu_k, mu_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv_k, inv_r, rtol=1e-5, atol=1e-5)
+
+
+def test_k2_is_deterministic(card):
+    x, w, b, mu, inv = _inputs(4, 50_001, 16, 16, card, seed=7)
+    first = k1.conv_k3_stats(x, w, b, mu, inv, 1, 'gelu', 1e-2)
+    for _ in range(3):
+        for a, e in zip(k1.conv_k3_stats(x, w, b, mu, inv, 1, 'gelu', 1e-2), first):
+            assert torch.equal(a, e)
+
+
+def test_convblock_kernel_stats_on_the_card(card, monkeypatch):
+    block = layers.ConvBlock1D(16, 32, norm_eps=1e-2, use_kernel=True).to(card).eval()
+    x = torch.randn(2, 4096, 16, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    with torch.no_grad():
+        monkeypatch.setattr(bd, 'KERNEL_STATS', False)
+        off = block(x)
+        monkeypatch.setattr(bd, 'KERNEL_STATS', True)
+        before = k1.STATS_LAUNCHES
+        on = block(x)
+    assert k1.STATS_LAUNCHES == before + 3
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+
+
+def test_k3_matches_plain(card):
+    """Ragged groups in one launch: rows shorter than the kernel's 8-sample
+    load-ahead, a single row, different rates, an outlier; atol 1e-4 against
+    the plain version on the same card (both f32, rounded op by op in the
+    same order)."""
+    g = torch.Generator(device=card).manual_seed(1)
+    xs = [
+        torch.randn(3, 5_001, device=card, generator=g) * 2 + 1,
+        torch.randn(2, 7, device=card, generator=g),
+        torch.randn(1, 4_096, device=card, generator=g) * 0.01,
+    ]
+    xs[0][1, 2_000] = 50.0  # an outlier
+    fss = [1024 / 30, 256 / 30, 34.0]
+    before = ema_norm.LAUNCHES
+    got = ema_norm.ema_normalize(xs, fss, baseline_tau_seconds=120.0)
+    assert ema_norm.LAUNCHES == before + 1
+    want = ema_norm.ema_normalize_reference(xs, fss, baseline_tau_seconds=120.0)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
+
+
+def test_k3_refuses_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match='one device'):
+        ema_norm.ema_normalize([torch.zeros(2, 10, device=card), torch.zeros(2, 10)], [34.0, 34.0])
+    with pytest.raises(ValueError, match='float32'):
+        ema_norm.ema_normalize([torch.zeros(2, 10, device=card, dtype=torch.bfloat16)], [34.0])

@@ -1,6 +1,9 @@
-"""The torch port and chip_smoke.py import (and chip_smoke builds its q8
-nights) with JAX, flax, optax, pandas, pyarrow and yaml unavailable, so the
-port never depends on them, and no file of the port imports JAX or flax."""
+"""The torch port imports nothing of the JAX package ``wav2sleep_tpu``, and
+neither JAX, flax, optax, pandas, pyarrow nor yaml: the port and
+chip_smoke.py import, and drive their host paths (the native library, the
+EDF reader and writer, both extractors, weight conversion), with all of
+those unavailable. No file of the port names them in an import, at module
+level or inside a function."""
 
 import os
 import re
@@ -10,10 +13,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'wav2sleep_tpu_torch'
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml')
+BLOCKED = ('wav2sleep_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml')
 
 _PROBE = f'''
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile
+import numpy as np
 BLOCKED = {BLOCKED!r}
 for name in list(sys.modules):
     if name.split('.')[0] in BLOCKED:
@@ -32,6 +36,20 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 chip_smoke.SyntheticQ8Nights(1, 0.05)  # builds and encodes its nights
+from wav2sleep_tpu_torch import convert, pipeline
+from wav2sleep_tpu_torch.data.edf import write_edf
+convert.from_jax_variables({{'params': {{'classifier': {{'kernel': np.zeros((2, 3), np.float32)}}}}}})
+with tempfile.TemporaryDirectory() as d:
+    fp = d + '/n.edf'
+    write_edf(fp, {{'ECG': np.sin(np.arange(3840) / 5.0), 'Thor': np.cos(np.arange(960) / 5.0)}},
+              {{'ECG': 128.0, 'Thor': 32.0}}, record_duration=30.0)
+    signals = ['ECG', 'THX']
+    dec = pipeline.NightDecoder(signals, 0.01)
+    assert dec._lib is not None  # the native library built without the JAX package
+    assert dec.decode_into(fp, {{c: np.zeros(pipeline.grid_length(c, 0.01), np.float32) for c in signals}}) == 1
+    q = {{c: np.zeros((1, pipeline.grid_length(c, 0.01)), np.int8) for c in signals}}
+    meta = {{c: np.zeros(1, pipeline.Q8_META_DTYPE) for c in signals}}
+    assert pipeline.Q8NightExtractor(signals, 0.01).extract_into(fp, q, meta, 0) == 1
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('IMPORTED', len(mods), 'LEAKED', leaked)
 '''
@@ -45,15 +63,37 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 9, proc.stdout  # every module of the package was reached
+    assert n >= 17, proc.stdout  # every module of the package was reached
+
+
+def _port_files():
+    files = [p for p in PORT.rglob('*') if p.suffix in ('.py', '.cu', '.cpp')] + [ROOT / 'chip_smoke.py']
+    assert len(files) >= 20
+    return files
 
 
 def test_no_port_file_imports_jax_or_flax():
     pattern = re.compile(r'^\s*(import jax|from jax)\b|\bflax\b', re.M)
-    files = [p for p in PORT.rglob('*') if p.suffix in ('.py', '.cu')] + [ROOT / 'chip_smoke.py']
-    assert len(files) >= 10
-    offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
+    offenders = [str(p.relative_to(ROOT)) for p in _port_files() if pattern.search(p.read_text())]
     assert not offenders, offenders
-    # chip_smoke.py reaches the JAX package only through the port.
-    direct = re.compile(r'^\s*(import|from)\s+wav2sleep_tpu\b', re.M)
-    assert not direct.search((ROOT / 'chip_smoke.py').read_text())
+
+
+def test_no_port_file_imports_the_jax_package():
+    """``import wav2sleep_tpu...`` / ``from wav2sleep_tpu... import``
+    anywhere in a file of the port or in chip_smoke.py (``wav2sleep_tpu_torch``
+    is the port itself)."""
+    pattern = re.compile(r'(import|from)\s+wav2sleep_tpu(\.|\s|$)', re.M)
+    offenders = [
+        f'{p.relative_to(ROOT)}:{m.group(0)!r}' for p in _port_files() for m in pattern.finditer(p.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_port_settings_are_the_jax_packages():
+    from wav2sleep_tpu import settings as jax_settings
+    from wav2sleep_tpu_torch import settings
+
+    names = [n for n in vars(settings) if n.isupper()]
+    assert len(names) >= 15
+    for name in names:
+        assert getattr(settings, name) == getattr(jax_settings, name), name

@@ -73,7 +73,7 @@ def narrow_flagship():
     jmodel = instantiate(cfg)
     x0 = {k: np.zeros((1, 2 * COLS_TO_SAMPLES_PER_EPOCH[k]), np.float32) for k in ('ABD', 'THX', 'ECG', 'PPG')}
     variables = jax_random_variables(jmodel, x0, seed=0)
-    tmodel = flagship_model(32, max_channels=32)
+    tmodel = flagship_model(32, max_channels=32, device='cpu')
     tmodel.load_state_dict(from_jax_variables(variables), strict=True)
     return jmodel, variables, tmodel
 
@@ -117,7 +117,7 @@ def test_kernel_dispatch_covers_every_encoder_k3_conv(monkeypatch):
     """The convs routed to K1 are exactly the encoders' k3 convs with C_in >= 8:
     at full width 2 + 3 per later block, 23 for ECG/PPG and 17 for ABD/THX.
     A forward calls ``conv_k3`` once for each of them."""
-    model = flagship_model()
+    model = flagship_model(device='cpu')
     per_encoder = {
         name: sum(m.kernel_eligible for m in enc.modules() if isinstance(m, layers.Conv1D))
         for name, enc in model.signal_encoders.encoders.items()
@@ -148,3 +148,24 @@ def test_state_dict_round_trip_is_exact(narrow_flagship):
     sd, carried = tmodel.state_dict(), from_jax_variables(variables)
     assert sd.keys() == carried.keys()
     assert all(torch.equal(sd[k], carried[k]) for k in sd)
+
+
+def test_from_jax_variables_is_the_checkpoint_mapping(narrow_flagship):
+    """The port's own key and value mapping gives exactly what the JAX
+    package's checkpoint export mapping gives (flatten, key rename, kernel
+    transposes, [1, C, 1] layer-norm affines)."""
+    from wav2sleep_tpu.checkpoint import _SEP, _flatten as jflatten, _to_torch_key, _to_torch_value
+
+    _, variables, _ = narrow_flagship
+    want = {}
+    for key, w in jflatten(variables['params']).items():
+        value = _to_torch_value(key, np.asarray(w, dtype=np.float32))
+        parts = key.split(_SEP)
+        if parts[-1] in ('scale', 'bias') and parts[-2] == 'norm':
+            value = value.reshape(1, -1, 1)
+        want[_to_torch_key(key, 'wav2sleep')] = value
+    got = from_jax_variables(variables)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32 and got[k].shape == v.shape
+        assert np.array_equal(got[k].numpy(), v), k

@@ -1,6 +1,8 @@
-"""The torch port's q8 serving path against the JAX package's: the device
-forward on the same int8 rows and metadata, and the whole EDF -> hypnogram
-pipeline on tiny EDFs through the shared native ``Q8NightExtractor``."""
+"""The torch port's serving paths against the JAX package's: the q8 device
+forward on the same int8 rows and metadata; the host extractors
+(``Q8NightExtractor``, ``NightDecoder``) and ``write_edf`` bit for bit; and
+the whole EDF -> hypnogram pipelines, q8 and f32 (z-score and causal EMA
+normalization), on tiny EDFs."""
 
 import threading
 
@@ -16,7 +18,8 @@ from wav2sleep_tpu.data.edf import write_edf
 from wav2sleep_tpu.settings import COLS_TO_SAMPLES_PER_EPOCH
 from wav2sleep_tpu_torch import pipeline as tpipe
 from wav2sleep_tpu_torch.convert import from_jax_variables
-from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep
+from wav2sleep_tpu_torch.data import edf as tedf
+from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_model
 
 from .test_torch_model import jax_random_variables
 
@@ -248,3 +251,115 @@ def test_stream_stops_producer_when_consumer_leaves(model_pair, tmp_path):
     assert next(it)[0] == fps[0]
     it.close()  # the generator's finally sets stop and joins the producer
     assert not [t for t in set(threading.enumerate()) - before if t.is_alive()]
+
+
+@pytest.mark.parametrize('use_native', [True, False])
+def test_q8_extractor_is_the_jax_packages(tmp_path, use_native):
+    """Codes and metadata bit for bit, through the native library and
+    through the numpy fallback."""
+    good = [fp for fp in _write_nights(tmp_path) if not fp.endswith('bad.edf')]
+    extractors = [cls(list(SIGNALS), HOURS, use_native=use_native) for cls in (jpipe.Q8NightExtractor, tpipe.Q8NightExtractor)]
+    assert (extractors[1]._lib is not None) == use_native
+    for fp in good:
+        outs = []
+        for ext in extractors:
+            q = {c: np.full((2, tpipe.grid_length(c, HOURS)), 99, np.int8) for c in SIGNALS}
+            meta = {c: np.zeros(2, dtype=tpipe.Q8_META_DTYPE) for c in SIGNALS}
+            outs.append((ext.extract_into(fp, q, meta, 1), q, meta))
+        (jn, jq, jmeta), (tn, tq, tmeta) = outs
+        assert tn == jn
+        for c in SIGNALS:
+            np.testing.assert_array_equal(tq[c], jq[c])
+            assert tmeta[c].tobytes() == jmeta[c].tobytes()
+
+
+@pytest.mark.parametrize('use_native', [True, False])
+def test_night_decoder_is_the_jax_packages(tmp_path, use_native):
+    """f32 rows bit for bit, -inf for the missing THX and for the grid past
+    the short night's last whole epoch."""
+    good = [fp for fp in _write_nights(tmp_path) if not fp.endswith('bad.edf')]
+    decoders = [cls(list(SIGNALS), HOURS, use_native=use_native) for cls in (jpipe.NightDecoder, tpipe.NightDecoder)]
+    for i, fp in enumerate(good):
+        rows = [{c: np.zeros(tpipe.grid_length(c, HOURS), np.float32) for c in SIGNALS} for _ in decoders]
+        counts = [dec.decode_into(fp, r) for dec, r in zip(decoders, rows)]
+        assert counts[1] == counts[0] == S - (i == 2)
+        for c in SIGNALS:
+            np.testing.assert_array_equal(rows[1][c], rows[0][c])
+    assert np.isneginf(rows[1]['THX'][-COLS_TO_SAMPLES_PER_EPOCH['THX']:]).all()
+
+
+def test_resample_uniform_is_the_interpolation():
+    """The numpy fallback's gather + lerp (f32) against np.interp onto the
+    same grid (f64), zero outside the recording, including a recording
+    shorter than the grid."""
+    from wav2sleep_tpu_torch.data.preprocessing import interp_to_grid, resample_uniform, signal_target_grid
+
+    rng = np.random.default_rng(9)
+    for col, fs, seconds in (('ECG', 125.0, S * 30), ('THX', 10.0, 4 * 30 + 7)):
+        values = rng.normal(size=int(fs * seconds)).astype(np.float32)
+        got = resample_uniform(values, fs, col, HOURS)
+        want = interp_to_grid(np.arange(len(values)) / fs, values, signal_target_grid(col, HOURS), fill_value=0.0)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        assert (got[signal_target_grid(col, HOURS) > (len(values) - 1) / fs] == 0).all()
+
+
+def test_write_edf_is_the_jax_packages(tmp_path):
+    rng = np.random.default_rng(8)
+    sigs = {'ECG': rng.normal(size=256 * 60), 'Pleth': rng.normal(size=256 * 60) * 3, 'Thor': rng.normal(size=32 * 60)}
+    rates = {'ECG': 256.0, 'Pleth': 256.0, 'Thor': 32.0}
+    write_edf(str(tmp_path / 'j.edf'), sigs, rates, units={'ECG': 'uV'}, record_duration=30.0)
+    tedf.write_edf(str(tmp_path / 't.edf'), sigs, rates, units={'ECG': 'uV'}, record_duration=30.0)
+    assert (tmp_path / 't.edf').read_bytes() == (tmp_path / 'j.edf').read_bytes()
+
+
+@pytest.mark.parametrize('normalize', ['zscore', 'causal'])
+def test_f32_pipeline_matches_jax(model_pair, tmp_path, normalize):
+    """The f32 transport end to end against the JAX pipeline (as
+    tests/test_pipeline.py checks the JAX causal path): both pipelines also
+    serve logits per night, which agree at 5e-4, and the port's hypnograms
+    are their argmax wherever JAX's top-two margin is not a near-tie."""
+    jmodel, variables, tmodel = model_pair
+    fps = _write_nights(tmp_path)
+    good = [fp for fp in fps if not fp.endswith('bad.edf')]
+    jp = jpipe.StreamingPipeline(
+        jmodel, variables, list(SIGNALS), batch_size=2, max_length_hours=HOURS, precision='float32',
+        normalize=normalize,
+    )
+    jp.forward = jpipe.make_streaming_forward(jmodel, 'float32', normalize, output='logits')
+    want = dict(jp.run(fps))
+    pipe = tpipe.StreamingPipeline(
+        tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS, precision='float32',
+        normalize=normalize, device='cpu',
+    )
+    pipe.warmup()
+    got = dict(pipe.run(fps))
+    assert pipe.fill_seconds > 0
+    pipe.forward = tpipe.make_streaming_forward(pipe.model, 'float32', normalize, output='logits')
+    got_logits = dict(pipe.run(fps))
+    assert list(got) == good and list(got_logits) == good and list(want) == good  # the bad night is skipped
+    assert [len(got[fp]) for fp in good] == [S, S, S - 1]
+    for fp in good:
+        logits = np.asarray(want[fp])
+        assert got_logits[fp].shape == logits.shape and np.isfinite(got_logits[fp]).all()
+        np.testing.assert_allclose(got_logits[fp], logits, atol=5e-4, rtol=5e-4)
+        top2 = np.sort(logits, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 1e-3
+        assert clear.any()
+        np.testing.assert_array_equal(got[fp][clear], logits.argmax(-1)[clear])
+        assert got[fp].min() >= 0 and got[fp].max() < 4
+
+
+def test_entry_points_run_on_the_card_unless_told(model_pair, monkeypatch):
+    """With no device given, the pipelines and flagship_model take the card,
+    and raise where there is none rather than run on the CPU."""
+    _, _, tmodel = model_pair
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for build in (
+        lambda: tpipe.StreamingPipelineQ8(tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS),
+        lambda: tpipe.StreamingPipeline(tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS),
+        lambda: flagship_model(max_channels=16),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert tpipe.StreamingPipeline(tmodel, list(SIGNALS), 2, HOURS, device='cpu').device.type == 'cpu'

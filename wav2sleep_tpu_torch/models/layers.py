@@ -10,8 +10,11 @@ C_out in {16, 32, 64, 128} runs through ``ops.conv_k3`` (K1) — the convs the
 JAX package runs through its Pallas kernel on the TPU. ``ConvBlock1D`` keeps
 the JAX package's fused chain: each conv's input read applies the previous
 conv's instance norm and activation, so the normalized maps are never
-written out. The entry conv (C_in = 1) and the 1x1 stride-2 residual stay
-plain torch, as they are XLA (not Pallas) in the JAX package.
+written out. With kernel statistics on (``block_domain.kernel_stats_enabled``)
+those convs run K2 (``ops.conv_k3.conv_k3_stats``), which also returns the
+statistics of its output; ``block_stats`` then runs only for the convs
+without a kernel. The entry conv (C_in = 1) and the 1x1 stride-2 residual
+stay plain torch, as they are XLA (not Pallas) in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.block_domain import apply_norm_act, block_stats
-from ..ops.conv_k3 import SUPPORTED_C_OUT, conv_k3
+from ..ops.block_domain import apply_norm_act, block_stats, kernel_stats_enabled
+from ..ops.conv_k3 import SUPPORTED_C_OUT, conv_k3, conv_k3_stats
 from .activations import get_activation
 from .norms import get_norm
 
@@ -77,6 +80,18 @@ class Conv1D(nn.Module):
         x = F.pad(x_NTC.transpose(1, 2), self.padding)
         y = F.conv1d(x, w, b, self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
+
+    def forward_with_stats(self, x_NTC: torch.Tensor, eps: float, fused_in=None):
+        """``(y, mu, inv)``: the conv's output and its instance-norm
+        statistics, from K2 where the conv has a kernel and kernel
+        statistics are on, else from ``block_stats`` over ``y``."""
+        if self.kernel_eligible and kernel_stats_enabled():
+            w = self.weight.to(x_NTC.dtype).permute(2, 1, 0).contiguous()
+            b = None if self.bias is None else self.bias.to(x_NTC.dtype)
+            mu, inv, act = fused_in if fused_in is not None else (None, None, None)
+            return conv_k3_stats(x_NTC.contiguous(), w, b, mu, inv, self.stride, act, eps)
+        y = self(x_NTC, fused_in)
+        return (y, *block_stats(y, eps))
 
 
 class ConvLayer1D(nn.Module):
@@ -149,12 +164,9 @@ class ConvBlock1D(nn.Module):
         if self.fused:
             # Each c_i is a PRE-norm conv output; its instance norm and
             # activation are applied inside the next conv's input read.
-            c1 = self.conv1.conv(x_NTC)
-            mu, inv = block_stats(c1, self.eps)
-            c2 = self.conv2.conv(c1, fused_in=(mu, inv, self.activation))
-            mu, inv = block_stats(c2, self.eps)
-            c3 = self.conv3.conv(c2, fused_in=(mu, inv, self.activation))
-            mu, inv = block_stats(c3, self.eps)
+            c1, mu, inv = self.conv1.conv.forward_with_stats(x_NTC, self.eps)
+            c2, mu, inv = self.conv2.conv.forward_with_stats(c1, self.eps, (mu, inv, self.activation))
+            c3, mu, inv = self.conv3.conv.forward_with_stats(c2, self.eps, (mu, inv, self.activation))
             out = apply_norm_act(c3, mu, inv, self.act)
         else:
             out = self.conv3(self.conv2(self.conv1(x_NTC)))

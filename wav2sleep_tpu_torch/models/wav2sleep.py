@@ -25,8 +25,8 @@ import math
 import torch
 from torch import nn
 
-from wav2sleep_tpu.settings import COLS_TO_SAMPLES_PER_EPOCH
-
+from ..settings import COLS_TO_SAMPLES_PER_EPOCH
+from ..utils import resolve_device
 from .activations import get_activation
 from .layers import Conv1D, ConvBlock1D, DilatedConvBlock
 from .norms import ConvLayerNorm
@@ -318,7 +318,8 @@ def flagship_model(
     generator: torch.Generator | None = None,
 ) -> Wav2Sleep:
     """The flagship model with a seeded random init, in eval mode, on
-    ``device`` in ``dtype``."""
+    ``device`` (the card when None; raises without one) in ``dtype``."""
+    device = resolve_device(device)
     cfg = flagship_config(feature_dim, max_channels)
     model = build_wav2sleep(**cfg, generator=generator)
     return model.to(device=device, dtype=dtype).eval()

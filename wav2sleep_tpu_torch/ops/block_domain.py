@@ -2,15 +2,29 @@
 
 The math of ``wav2sleep_tpu/ops/block_domain.py`` (``block_stats`` and
 ``apply_norm_act``) as plain reductions over time on channels-last
-``[B, T, C]`` maps. The JAX module's 128-lane block packing is a TPU layout
-device and is not carried over.
+``[B, T, C]`` maps, and that module's switch for kernel-emitted statistics
+(``kernel_stats_enabled``). The JAX module's 128-lane block packing is a TPU
+layout device and is not carried over.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
+
+# Kernel-emitted instance-norm statistics in the encoders' fused conv chain
+# (K2, ``ops/conv_k3.conv_k3_stats``) instead of a separate ``block_stats``
+# pass over each conv's output. None reads ``WAV2SLEEP_KERNEL_STATS``; off
+# by default, as in the JAX package.
+KERNEL_STATS: bool | None = None
+
+
+def kernel_stats_enabled() -> bool:
+    if KERNEL_STATS is not None:
+        return KERNEL_STATS
+    return bool(os.environ.get('WAV2SLEEP_KERNEL_STATS'))
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:

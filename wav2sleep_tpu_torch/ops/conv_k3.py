@@ -1,9 +1,9 @@
-"""K1: kernel-3 1-D convolution with an optional fused norm + activation on its input.
+"""K1 and K2: kernel-3 1-D convolution with an optional fused norm + activation on its input.
 
-Replaces ``wav2sleep_tpu/ops/pallas_conv.py::_conv_kernel`` (the Pallas TPU
-kernel behind ``sd_conv``, ``sd_conv_blocks`` and ``sd_conv_blocks_fused``)
-with a CUDA C++ kernel for sm_90a, ``csrc/conv_k3.cu``. On channels-last
-``[B, T, C]`` tensors it computes::
+K1 (``conv_k3``) replaces ``wav2sleep_tpu/ops/pallas_conv.py::_conv_kernel``
+(the Pallas TPU kernel behind ``sd_conv``, ``sd_conv_blocks`` and
+``sd_conv_blocks_fused``) with a CUDA C++ kernel for sm_90a,
+``csrc/conv_k3.cu``. On channels-last ``[B, T, C]`` tensors it computes::
 
     y[b, t, o] = bias[o] + sum_j sum_c w[j, c, o] * phi(x)[b, stride*t + j - 1, c]
 
@@ -12,49 +12,46 @@ previous layer's instance norm and activation, read in with the input so the
 normalized map never goes to device memory — and out-of-range positions of
 ``phi(x)`` are zero. Sums run in f32; ``y`` has ``x``'s dtype.
 
+K2 (``conv_k3_stats``) replaces ``pallas_conv.py::_conv_stats_kernel``: the
+same conv, which also returns the per-(batch, channel) instance-norm
+statistics ``(mu, 1/sqrt(var + eps))`` of ``y`` as stored, from an epilogue
+of the same kernel, so the norm that follows never reads ``y`` again. Its
+plain version is ``conv_k3_reference`` followed by ``block_stats``.
+
 The TPU kernel's space-to-depth weight embedding existed for the 128-lane
 MXU and is not carried over. What bounds the CUDA kernel on an H100, and how
 its tiles are laid out, is noted at the top of ``csrc/conv_k3.cu``: it is a
 CUDA-core kernel, bound by f32 FMA issue at the encoders' shapes.
 
-The library is compiled with ``nvcc`` on first use, from ``csrc/`` only, into
-``build/kernels/`` at the repository root, and loaded with ``ctypes``.
-``conv_k3`` launches it for CUDA tensors and raises on anything it does not
-take; for CPU tensors it runs ``conv_k3_reference``, the plain PyTorch version
-that the tests and the on-card check compare the kernel with.
+The library is compiled with ``nvcc`` on first use (``ops/cuda_build.py``)
+into ``build/kernels/`` at the repository root, and loaded with ``ctypes``.
+Both wrappers launch it for CUDA tensors and raise on anything it does not
+take; for CPU tensors they run their plain versions, which the tests and the
+on-card check compare the kernels with.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from ..models.activations import get_activation
-from .block_domain import apply_norm_act
+from .block_domain import apply_norm_act, block_stats
+from .cuda_build import compile_library
 
-# Kernel launches made by ``conv_k3`` (CUDA tensors only).
+# Kernel launches made by ``conv_k3`` (K1) and ``conv_k3_stats`` (K2), CUDA
+# tensors only.
 LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 SUPPORTED_C_OUT = (16, 32, 64, 128)
 
 # Activation codes of csrc/conv_k3.cu.
 _ACT_CODES = {None: 0, 'linear': 0, 'gelu': 1, 'relu': 2, 'leaky': 3, 'silu': 4, 'swish': 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'conv_k3.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-NVCC_FLAGS = (
-    '-gencode', 'arch=compute_90a,code=sm_90a',
-    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -63,40 +60,21 @@ _lib_lock = threading.Lock()
 BUILD_LOG = ''
 
 
-def _nvcc() -> str:
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    for home in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if home and os.path.isfile(os.path.join(home, 'bin', 'nvcc')):
-            return os.path.join(home, 'bin', 'nvcc')
-    raise RuntimeError('nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build conv_k3')
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/conv_k3.cu`` (once per source and flags) and load it."""
     global _lib, BUILD_LOG
     with _lib_lock:
         if _lib is not None:
             return _lib
-        source = _SOURCE.read_bytes()
-        tag = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f'libw2s_conv_k3_{tag}.so'
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f'{lib_path.name}.{os.getpid()}.tmp')
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_SOURCE)],
-                capture_output=True, text=True, check=False,
-            )
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f'nvcc failed building conv_k3 (exit {proc.returncode}):\n{BUILD_LOG}')
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        lib.w2s_conv_k3.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.w2s_conv_k3.restype = ctypes.c_int
+        path, BUILD_LOG = compile_library('conv_k3.cu')
+        lib = ctypes.CDLL(str(path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.w2s_conv_k3.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+        lib.w2s_conv_k3.restype = i32
+        lib.w2s_conv_k3_tile.argtypes = [i32]
+        lib.w2s_conv_k3_tile.restype = i32
+        lib.w2s_conv_k3_stats.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr]
+        lib.w2s_conv_k3_stats.restype = i32
         _lib = lib
         return lib
 
@@ -106,7 +84,7 @@ def output_length(t_in: int, stride: int) -> int:
 
 
 def conv_k3_reference(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None = None):
-    """Plain PyTorch version of the kernel: ``phi`` in f32, then ``F.conv1d``.
+    """Plain PyTorch version of K1: ``phi`` in f32, then ``F.conv1d``.
 
     ``phi(x)`` is rounded to ``x``'s dtype before the conv (the kernel keeps
     it in f32), so in bf16 the two differ by a few bf16 ulps of ``y``.
@@ -115,6 +93,13 @@ def conv_k3_reference(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: 
     b = None if bias is None else bias.to(x.dtype)
     y = F.conv1d(phi.transpose(1, 2), w.permute(2, 1, 0).to(x.dtype), b, stride=stride, padding=1)
     return y.transpose(1, 2)
+
+
+def conv_k3_stats_reference(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None = None,
+                            eps: float = 1e-5):
+    """Plain PyTorch version of K2: ``conv_k3_reference`` then ``block_stats``."""
+    y = conv_k3_reference(x, w, bias, mu, inv, stride, act)
+    return (y, *block_stats(y, eps))
 
 
 def _check(name, t, device, dtype, shape):
@@ -128,8 +113,8 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f'conv_k3: {name} must be contiguous')
 
 
-def _launch(x, w, bias, mu, inv, stride, act):
-    global LAUNCHES
+def _validate(x, w, bias, mu, inv, stride):
+    """Raise on anything the kernel does not take; return (B, T, C_in, C_out)."""
     if x.device.type != 'cuda':
         raise ValueError(f'conv_k3 kernel needs a CUDA tensor, got {x.device}')
     if x.dtype not in _DTYPE_CODES:
@@ -153,18 +138,24 @@ def _launch(x, w, bias, mu, inv, stride, act):
     if mu is not None:
         _check('mu', mu, x.device, torch.float32, (B, c_in))
         _check('inv', inv, x.device, torch.float32, (B, c_in))
+    return B, T, c_in, c_out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, w, bias, mu, inv, stride, act):
+    global LAUNCHES
+    B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
     t_out = output_length(T, stride)
     y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=x.device)
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.w2s_conv_k3(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if mu is None else mu.data_ptr(),
-            None if inv is None else inv.data_ptr(),
-            y.data_ptr(), B, T, t_out, c_in, c_out, stride, _ACT_CODES[act],
-            _DTYPE_CODES[x.dtype], stream,
+            x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(mu), _ptr(inv), y.data_ptr(),
+            B, T, t_out, c_in, c_out, stride, _ACT_CODES[act], _DTYPE_CODES[x.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f'conv_k3 launch failed: error {rc} at x {tuple(x.shape)} {x.dtype}, C_out {c_out}, stride {stride}')
@@ -172,8 +163,49 @@ def _launch(x, w, bias, mu, inv, stride, act):
     return y
 
 
+def _launch_stats(x, w, bias, mu, inv, stride, act, eps):
+    global STATS_LAUNCHES
+    B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
+    t_out = output_length(T, stride)
+    lib = build()
+    tile = lib.w2s_conv_k3_tile(c_out)
+    n_tiles = -(-t_out // tile)
+    dev = x.device
+    y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=dev)
+    part = torch.empty((2, B, c_out, n_tiles), dtype=torch.float32, device=dev)
+    mu_out = torch.empty((B, c_out), dtype=torch.float32, device=dev)
+    inv_out = torch.empty((B, c_out), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.w2s_conv_k3_stats(
+            x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(mu), _ptr(inv), y.data_ptr(),
+            part.data_ptr(), mu_out.data_ptr(), inv_out.data_ptr(),
+            B, T, t_out, c_in, c_out, stride, _ACT_CODES[act], _DTYPE_CODES[x.dtype], float(eps), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f'conv_k3_stats launch failed: error {rc} at x {tuple(x.shape)} {x.dtype}, C_out {c_out}, stride {stride}'
+        )
+    STATS_LAUNCHES += 1
+    return y, mu_out, inv_out
+
+
+def _reference_grads(ref, ctx, grads_out, n_inputs=5):
+    """Gradients of ``ref`` (a plain version) at the saved inputs."""
+    with torch.enable_grad():
+        inputs = [
+            None if t is None else t.detach().requires_grad_(need)
+            for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:n_inputs])
+        ]
+        outs = ref(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wanted, grads_out, allow_unused=True))
+    return [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+
+
 class _ConvK3(torch.autograd.Function):
-    """The kernel forward; the backward is autograd of ``conv_k3_reference``."""
+    """K1 forward; the backward is autograd of ``conv_k3_reference``."""
 
     @staticmethod
     def forward(ctx, x, w, bias, mu, inv, stride, act):
@@ -186,16 +218,35 @@ class _ConvK3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         stride, act = ctx.conf
-        with torch.enable_grad():
-            inputs = [
-                None if t is None else t.detach().requires_grad_(need)
-                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:5])
-            ]
-            y = conv_k3_reference(*inputs, stride, act)
-            wanted = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
-        return (*out, None, None)
+        grads = _reference_grads(lambda *a: conv_k3_reference(*a, stride, act), ctx, (g,))
+        return (*grads, None, None)
+
+
+class _ConvK3Stats(torch.autograd.Function):
+    """K2 forward; the backward is autograd of ``conv_k3_stats_reference``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, mu, inv, stride, act, eps):
+        ctx.save_for_backward(x, w, bias, mu, inv)
+        ctx.conf = (stride, act, eps)
+        if x.device.type == 'cpu':
+            return conv_k3_stats_reference(x, w, bias, mu, inv, stride, act, eps)
+        return _launch_stats(x, w, bias, mu, inv, stride, act, eps)
+
+    @staticmethod
+    def backward(ctx, gy, gmu, ginv):
+        stride, act, eps = ctx.conf
+        grads = _reference_grads(
+            lambda *a: conv_k3_stats_reference(*a, stride, act, eps), ctx, (gy, gmu, ginv)
+        )
+        return (*grads, None, None, None)
+
+
+def _check_args(mu, inv, act):
+    if (mu is None) != (inv is None):
+        raise ValueError('conv_k3: mu and inv must be given together')
+    if act not in _ACT_CODES:
+        raise ValueError(f'conv_k3: unsupported activation {act!r}')
 
 
 def conv_k3(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None = None):
@@ -207,8 +258,14 @@ def conv_k3(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None
     of ``models/activations.py`` applied after the norm. Returns
     [B, (T - 1) // stride + 1, C_out].
     """
-    if (mu is None) != (inv is None):
-        raise ValueError('conv_k3: mu and inv must be given together')
-    if act not in _ACT_CODES:
-        raise ValueError(f'conv_k3: unsupported activation {act!r}')
+    _check_args(mu, inv, act)
     return _ConvK3.apply(x, w, bias, mu, inv, stride, act)
+
+
+def conv_k3_stats(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None = None,
+                  eps: float = 1e-5):
+    """``conv_k3`` that also returns ``y``'s instance-norm statistics:
+    ``(y, mu, inv)`` with mu, inv f32 [B, C_out], the mean over time and
+    ``1/sqrt(var + eps)`` (biased variance) of ``y`` as stored in its dtype."""
+    _check_args(mu, inv, act)
+    return _ConvK3Stats.apply(x, w, bias, mu, inv, stride, act, eps)

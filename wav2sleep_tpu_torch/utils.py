@@ -1,0 +1,32 @@
+"""Small helpers shared by the port's modules."""
+
+from __future__ import annotations
+
+import queue
+
+import torch
+
+
+def stop_aware_put(q, stop, item, poll: float = 0.2) -> bool:
+    """Bounded-queue put that gives up once ``stop`` is set, so an abandoned
+    consumer releases a producer blocked on a full queue. Returns False when
+    it gave up."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=poll)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """``device``, or the card (``cuda``) when it is None. Raises when the
+    device asked for, or defaulted to, is a card and there is none: an entry
+    point never falls back to the CPU unless the caller asks for it."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
