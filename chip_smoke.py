@@ -15,11 +15,19 @@ Phases (any failure raises, so the script exits non-zero):
    (C_in, C_out, stride) of the flagship encoders, at the ECG encoder's
    lengths for a batch of 8 ten-hour nights, with phi as the identity and as
    instance norm + gelu, in f32 (TF32 off, atol/rtol 1e-4) and in bf16 (see
-   ``BF16_TOL``); median CUDA-event times of K1, the plain version and, for
-   the identity, one ``F.conv1d`` call on the same tensors; each call's bound.
+   ``BF16_TOL``); times of K1, the plain version and, for the identity, one
+   ``F.conv1d`` call on the same tensors, each in two ways
+   (``bench_conv.both_ms``): CUDA events around one call, median of 10
+   (the times of the kernels line), and around runs of 10 back-to-back
+   calls, median of 5 (the card's time alone, without the host's time per
+   call); each call's bound and the share of it reached.
 4. K2 (``conv_k3_stats``) at the same shapes: y as K1's is checked; mu and inv
    within atol/rtol 1e-5 (f32) and 1e-3 (bf16) of ``block_stats`` of the
-   plain output; times of K2, of K1 + ``block_stats``, and of the plain version.
+   plain output; times of K2, of K1 + ``block_stats``, and of the plain
+   version, both ways. Then K1, K2 and ``F.conv1d`` summed over the 80 k3
+   convs of one bf16 flagship forward (8 ten-hour nights), each call timed
+   both ways on the inputs the forward gives it, beside the sum of their
+   bounds.
 5. K3 (``ema_normalize``) on the rows of one serving batch (8 ten-hour
    nights x 4 modalities, each at its grid rate) in one launch: over the
    whole length against the native host f64 recurrence (atol 5e-3 plus
@@ -56,7 +64,6 @@ import contextlib
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -65,30 +72,18 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from wav2sleep_tpu_torch.bench_conv import SHAPES as KERNEL_SHAPES
+from wav2sleep_tpu_torch.bench_conv import both_ms, cuda_ms
 from wav2sleep_tpu_torch.pipeline import grid_length
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIGNALS = ('ECG', 'PPG', 'ABD', 'THX')
-# (C_in, C_out, stride, T): every K1 shape of the flagship encoders, at its
-# first (longest) length in the ECG encoder for ten-hour nights.
-KERNEL_SHAPES = [
-    (16, 16, 1, 1_228_800),
-    (16, 16, 2, 1_228_800),
-    (16, 32, 1, 307_200),
-    (32, 32, 1, 307_200),
-    (32, 32, 2, 307_200),
-    (32, 64, 1, 76_800),
-    (64, 64, 1, 76_800),
-    (64, 64, 2, 76_800),
-    (64, 128, 1, 19_200),
-    (128, 128, 1, 19_200),
-    (128, 128, 2, 19_200),
-]
 F32_TOL = 1e-4
-# bf16: |kernel - plain| <= BF16_TOL * (|plain| + rms(plain)). Both round y
-# to bf16 once (1 ulp, 2**-8 to 2**-7 relative); the plain version also
-# rounds phi(x) to bf16 before the conv (2**-9 relative per term, which adds
-# up to about 2**-9 of rms(y)). 2**-6 leaves a margin of 2-4 bf16 ulps.
+# bf16: |kernel - plain| <= BF16_TOL * (|plain| + rms(plain)). Both round
+# phi(x) to bf16 before the products (from the same f32 values, up to the
+# last bit of the activation), sum the exact bf16 products in f32 in their
+# own orders, and round y to bf16 once (1 ulp, 2**-8 to 2**-7 relative).
+# 2**-6 leaves a margin of 2-4 bf16 ulps.
 BF16_TOL = 2.0**-6
 STATS_TOL = {'float32': 1e-5, 'bfloat16': 1e-3}  # K2's mu, inv vs block_stats of the plain y
 # K3 vs the f64 host recurrence over whole rows: |d| <= EMA_HOST_TOL +
@@ -119,21 +114,8 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def fmt(t: tuple[float, float]) -> str:
+    return f'{t[0]:.4f} ({t[1]:.4f})'
 
 
 def card_line() -> str:
@@ -151,15 +133,20 @@ def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def conv_bound(B, T, ci, co, stride, dtype_name, fused: bool, stats: bool) -> tuple[float, str]:
-    """Bound of one K1 / K2 call: x, w, bias (and mu, inv in) read once, y
-    (and mu, inv out) written once; the conv's multiply-adds, 2 FLOPs each."""
+def conv_work(B, T, ci, co, stride, dtype_name, fused: bool, stats: bool) -> tuple[int, int]:
+    """Bytes and FLOPs of one K1 / K2 call: x, w, bias (and mu, inv in)
+    read once, y (and mu, inv out) written once; the conv's multiply-adds,
+    2 FLOPs each."""
     item = 4 if dtype_name == 'float32' else 2
     t_out = (T - 1) // stride + 1
     n_bytes = (B * T * ci + 3 * ci * co + co + B * t_out * co) * item
     n_bytes += 2 * B * ci * 4 if fused else 0
     n_bytes += 2 * B * co * 4 if stats else 0
-    return bound(n_bytes, 2 * 3 * ci * co * t_out * B, dtype_name)
+    return n_bytes, 2 * 3 * ci * co * t_out * B
+
+
+def conv_bound(B, T, ci, co, stride, dtype_name, fused: bool, stats: bool) -> tuple[float, str]:
+    return bound(*conv_work(B, T, ci, co, stride, dtype_name, fused, stats), dtype_name)
 
 
 def counts(k1, k3) -> dict:
@@ -196,7 +183,7 @@ def phase_build(k1, k3, native):
 def phase_k1(torch, F, k1, block_stats):
     """K1 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    max_f32_err, line = 0.0, None
+    max_f32_err, line, slower = 0.0, None, ([], [])
     for ci, co, stride, T in KERNEL_SHAPES:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
@@ -231,8 +218,8 @@ def phase_k1(torch, F, k1, block_stats):
                     tol = '<=2^-6(|y|+rms)'
                 if not ok:
                     raise AssertionError(f'K1 disagrees with its plain version at {ci}->{co} s{stride} {name} {phi}')
-                ms = cuda_ms(lambda: k1.conv_k3(x, w, *args))
-                plain_ms = cuda_ms(lambda: k1.conv_k3_reference(x, w, *args))
+                ms = both_ms(lambda: k1.conv_k3(x, w, *args))
+                plain_ms = both_ms(lambda: k1.conv_k3_reference(x, w, *args))
                 lib_ms = None
                 if phi == 'identity':
                     w_oik = w.permute(2, 1, 0).contiguous()
@@ -240,23 +227,32 @@ def phase_k1(torch, F, k1, block_stats):
                     if not torch.allclose(lib.float(), want.float(), atol=1e-2, rtol=1e-2):
                         raise AssertionError(f'F.conv1d is not the same function at {ci}->{co} s{stride} {name}')
                     del lib
-                    lib_ms = cuda_ms(lambda: F.conv1d(x.transpose(1, 2), w_oik, b, stride=stride, padding=1))
+                    lib_ms = both_ms(lambda: F.conv1d(x.transpose(1, 2), w_oik, b, stride=stride, padding=1))
+                    for i in (0, 1):
+                        if name == 'bfloat16' and ms[i] > lib_ms[i]:
+                            slower[i].append(f'{ci}->{co} s{stride}')
                 bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', False)
                 log(f'K1 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok; '
-                    f'K1 {ms:.4f} ms, plain {plain_ms:.4f}, F.conv1d '
-                    f'{"-" if lib_ms is None else f"{lib_ms:.4f}"}, bound {bound_ms:.4f} ({bound_by})')
+                    f'ms one call (back to back): K1 {fmt(ms)}, plain {fmt(plain_ms)}, F.conv1d '
+                    f'{"-" if lib_ms is None else fmt(lib_ms)}, bound {bound_ms:.4f} ({bound_by}), '
+                    f'{100 * bound_ms / ms[0]:.1f}% ({100 * bound_ms / ms[1]:.1f}%) of the bound')
                 if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'identity'):
-                    line = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                    line = dict(ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1],
+                                library_call_ms=lib_ms[1])
                 del got, want, diff
         del x32, x, mu, inv
         torch.cuda.empty_cache()
+    for how, shapes in zip(('one call', 'back to back'), slower):
+        log(f'K1 bf16 identity slower than F.conv1d at {len(shapes)} of {len(KERNEL_SHAPES)} shapes ({how})'
+            f'{": " + ", ".join(shapes) if shapes else ""}')
     return max_f32_err, line
 
 
 def phase_k2(torch, k1, block_stats):
     """K2 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
     gen = torch.Generator(device='cuda').manual_seed(2)
-    max_f32_err, line = 0.0, None
+    max_f32_err, line, slower = 0.0, None, ([], [])
     for ci, co, stride, T in KERNEL_SHAPES:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
@@ -288,20 +284,67 @@ def phase_k2(torch, k1, block_stats):
                 def k1_then_stats():
                     return block_stats(k1.conv_k3(x, w, *args), NORM_EPS)
 
-                ms = cuda_ms(lambda: k1.conv_k3_stats(x, w, *args, NORM_EPS))
-                k1_stats_ms = cuda_ms(k1_then_stats)
-                plain_ms = cuda_ms(lambda: k1.conv_k3_stats_reference(x, w, *args, NORM_EPS))
+                ms = both_ms(lambda: k1.conv_k3_stats(x, w, *args, NORM_EPS))
+                k1_stats_ms = both_ms(k1_then_stats)
+                plain_ms = both_ms(lambda: k1.conv_k3_stats_reference(x, w, *args, NORM_EPS))
                 bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', True)
+                for i in (0, 1):
+                    if name == 'bfloat16' and ms[i] >= k1_stats_ms[i]:
+                        slower[i].append(f'{ci}->{co} s{stride} {phi}')
                 log(f'K2 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d| y {float(diff.max()):.2e}, '
                     f'mu {float((mu_k - mu_p).abs().max()):.2e}, inv {float((inv_k - inv_p).abs().max()):.2e} ok; '
-                    f'K2 {ms:.4f} ms, K1+block_stats {k1_stats_ms:.4f}, plain {plain_ms:.4f}, '
-                    f'bound {bound_ms:.4f} ({bound_by})')
+                    f'ms one call (back to back): K2 {fmt(ms)}, K1+block_stats {fmt(k1_stats_ms)}, '
+                    f'plain {fmt(plain_ms)}, bound {bound_ms:.4f} ({bound_by}), '
+                    f'{100 * bound_ms / ms[0]:.1f}% ({100 * bound_ms / ms[1]:.1f}%) of the bound')
                 if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'norm+gelu'):
-                    line = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                    line = dict(ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None, call_ms=ms[1], plain_call_ms=plain_ms[1], library_call_ms=None)
                 del y, want, diff
         del x32, x, mu, inv
         torch.cuda.empty_cache()
+    for how, calls in zip(('one call', 'back to back'), slower):
+        log(f'K2 bf16 not faster than K1 + block_stats at {len(calls)} of {2 * len(KERNEL_SHAPES)} calls ({how})'
+            f'{": " + ", ".join(calls) if calls else ""}')
     return max_f32_err, line
+
+
+def phase_forward_convs(torch, F, k1, layers, wav2sleep):
+    """K1, K2 and ``F.conv1d`` summed over the k3 convs of one bf16
+    flagship forward (8 ten-hour nights), each call timed on the inputs the
+    forward gives it, beside the sum of the calls' bounds."""
+    model = wav2sleep.flagship_model(dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device='cuda').manual_seed(4)
+    xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).to(torch.bfloat16)
+          for c in SIGNALS}
+    tot = dict.fromkeys(('calls', 'bytes', 'flops', 'bound'), 0.0)
+    tot.update({k: np.zeros(2) for k in ('k1', 'k2', 'lib')})
+
+    def timed_conv(x, w, bias=None, mu=None, inv=None, stride=1, act=None):
+        args = (bias, mu, inv, stride, act)
+        w_oik = w.permute(2, 1, 0).contiguous()
+        tot['k1'] += both_ms(lambda: k1.conv_k3(x, w, *args))
+        tot['k2'] += both_ms(lambda: k1.conv_k3_stats(x, w, *args, NORM_EPS))
+        tot['lib'] += both_ms(lambda: F.conv1d(x.transpose(1, 2), w_oik, bias, stride=stride, padding=1))
+        work = conv_work(*x.shape, w.shape[2], stride, 'bfloat16', mu is not None, False)
+        tot['bytes'] += work[0]
+        tot['flops'] += work[1]
+        tot['bound'] += bound(*work, 'bfloat16')[0]
+        tot['calls'] += 1
+        return k1.conv_k3(x, w, *args)
+
+    layers.conv_k3 = timed_conv
+    try:
+        model(xb)
+    finally:
+        layers.conv_k3 = k1.conv_k3
+    if tot['calls'] != 80:
+        raise AssertionError(f'{tot["calls"]:.0f} k3 convs in the flagship forward, expected 80')
+    k1_ms, k2_ms, lib_ms = (tot[k] for k in ('k1', 'k2', 'lib'))
+    log(f'K1/K2 over one bf16 flagship forward (B={BATCH} x {HOURS:g} h, 80 calls at their lengths), '
+        f'ms one call (back to back): K1 {k1_ms[0]:.3f} ({k1_ms[1]:.3f}), '
+        f'{100 * tot["bound"] / k1_ms[0]:.1f}% ({100 * tot["bound"] / k1_ms[1]:.1f}%) of the bound; '
+        f'K2 {k2_ms[0]:.3f} ({k2_ms[1]:.3f}); F.conv1d {lib_ms[0]:.3f} ({lib_ms[1]:.3f}); '
+        f'bound {tot["bound"]:.3f} ms ({tot["bytes"] / 1e9:.2f} GB, {tot["flops"] / 1e9:.1f} GFLOP)')
 
 
 def serving_rows(torch, seed: int) -> list:
@@ -372,7 +415,9 @@ def phase_k3(torch, k3, settings):
     log(f'K3 prefix ({4 * BATCH} rows x {EMA_PREFIX}): kernel {ms_prefix:.3f} ms, plain {plain_ms:.1f} ms '
         f'(one run), bound {bound_ms:.4f} ms ({bound_by}); one forward\'s rows '
         f'({sum(x.numel() for x in xs)} samples, one launch): {ms_forward:.3f} ms, bound {fwd_bound:.4f} ms')
-    line = dict(ms=ms_prefix, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    call_prefix = cuda_ms(lambda: k3.ema_normalize(heads, fss, **args), reps=5, warmup=1, inner=10)
+    line = dict(ms=ms_prefix, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                call_ms=call_prefix, plain_call_ms=None, library_call_ms=None)
     return err_plain, line, ms_forward
 
 
@@ -687,6 +732,7 @@ def main() -> int:
     with torch.inference_mode():
         k1_err, k1_line = phase_k1(torch, F, k1, bd.block_stats)
         k2_err, k2_line = phase_k2(torch, k1, bd.block_stats)
+        phase_forward_convs(torch, F, k1, layers, wav2sleep)
         k3_err, k3_line, _ = phase_k3(torch, k3, settings)
     phase_model(torch, k1, k3, bd, layers, wav2sleep)
     phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card)

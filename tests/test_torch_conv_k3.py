@@ -1,8 +1,8 @@
 """K1 (wav2sleep_tpu_torch.ops.conv_k3) against the JAX package's Pallas k3
 conv run in interpret mode: forward on the Pallas kernel's test shapes with
-phi as the identity and as fused instance norm + gelu, the autograd
-Function's gradients, and the wrapper's refusals. On the CPU ``conv_k3``
-runs its plain version; the kernel itself is checked on the card
+phi as the identity and as fused instance norm + gelu, in f32 and in bf16,
+the autograd Function's gradients, and the wrapper's refusals. On the CPU
+``conv_k3`` runs its plain version; the kernel itself is checked on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 import numpy as np
@@ -29,6 +29,15 @@ SHAPES = [
     (128, 128, 2),
 ]
 TOL = dict(atol=2e-4, rtol=2e-4)
+# bf16: |plain - Pallas| <= tol * (|y| + rms(y)). With phi the identity both
+# sum the exact bf16 products in f32, in their own orders, and round y once:
+# 1 bf16 ulp (2**-8 to 2**-7 of |y|). With norm + gelu both round phi(x) to
+# bf16 before the products, but the Pallas kernel also rounds the shift and
+# the scale to bf16 and computes x - shift and its product with the scale in
+# bf16: up to 4 roundings of 2**-9 per term, partly shared by a channel's
+# terms, which in the worst alignment sum to 2**-7 of sum |w phi(x)|, about
+# 2**-5 of rms(y) at these widths.
+BF16_TOL = {'identity': 2.0**-7, 'norm+gelu': 2.0**-5}
 
 
 def _inputs(ci, co, stride, seed):
@@ -65,6 +74,28 @@ def test_fused_norm_gelu_matches_pallas(ci, co, stride):
     )
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize('phi', ['identity', 'norm+gelu'])
+@pytest.mark.parametrize('ci,co,stride', [(16, 16, 1), (32, 64, 1), (16, 32, 2), (64, 128, 2)])
+def test_bf16_matches_pallas(ci, co, stride, phi):
+    """bf16 x, w, b (f32 mu, inv) through the Pallas kernel and through K1's
+    plain version, which rounds phi(x) as the CUDA kernel does."""
+    x, w, b, mu, inv = _inputs(ci, co, stride, seed=11 * ci + co + stride)
+    xj, wj, bj = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, b))
+    xt, wt, bt = (torch.from_numpy(np.asarray(a.astype(jnp.float32))).bfloat16() for a in (xj, wj, bj))
+    if phi == 'identity':
+        want = pallas_conv.sd_conv(xj, wj, bj, stride)
+        got = k1.conv_k3(xt, wt, bt, stride=stride)
+    else:
+        data = bd.to_blocks(xj).data
+        out = pallas_conv.sd_conv_blocks_fused(data, wj, bj, jnp.asarray(mu), jnp.asarray(inv), ci, co, stride, 'gelu')
+        want = bd.from_blocks(bd.BlockedArray(data=out, channels=co))
+        got = k1.conv_k3(xt, wt, bt, torch.from_numpy(mu), torch.from_numpy(inv), stride, 'gelu')
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16 and got.shape == want.shape
+    want = np.asarray(want.astype(jnp.float32))
+    bound = BF16_TOL[phi] * (np.abs(want) + np.sqrt(np.mean(want**2)))
+    assert (np.abs(got.float().numpy() - want) <= bound).all()
 
 
 @pytest.mark.parametrize('stride', [1, 2])

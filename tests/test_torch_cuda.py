@@ -18,6 +18,11 @@ from wav2sleep_tpu_torch.ops import ema_norm
 
 pytestmark = pytest.mark.cuda
 
+# Output times per tile of the bf16 kernel with C_in = C_out, by (C_out,
+# stride): ``w2s_conv_k3_tile``, checked by ``test_bf16_tiles``.
+BF16_TILE = {(16, 1): 512, (16, 2): 256, (32, 1): 256, (32, 2): 128,
+             (64, 1): 128, (64, 2): 128, (128, 1): 64, (128, 2): 64}
+
 CASES = [
     # (B, T, C_in, C_out, stride): the encoder shapes, plus ragged lengths,
     # channel counts that are not a multiple of the 16-channel staging chunk,
@@ -33,6 +38,17 @@ CASES = [
     (3, 1001, 8, 16, 1),
     (1, 999, 24, 32, 2),
     (1, 5, 128, 128, 2),
+    # Rows of 24 bytes (C_in % 8 != 0): the kernel's narrow staging.
+    (2, 1000, 12, 32, 1),
+    (2, 999, 12, 16, 2),
+    # One batch row, t_out shorter than one tile.
+    (1, 100, 16, 16, 1),
+    (1, 37, 32, 64, 2),
+] + [
+    # t_out one under, at and one over a bf16 tile: the halo across tile edges.
+    (2, stride * (tile + d), co, co, stride)
+    for (co, stride), tile in BF16_TILE.items()
+    for d in (-1, 0, 1)
 ]
 
 
@@ -77,11 +93,18 @@ def test_kernel_matches_plain(card, B, T, ci, co, stride, dtype):
             assert bool(((got.float() - ref).abs() <= 2**-6 * (ref.abs() + ref.square().mean().sqrt())).all())
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('act', ['linear', 'relu', 'leaky', 'silu', 'gelu'])
-def test_every_fused_activation(card, act):
+def test_every_fused_activation(card, act, dtype):
     x, w, b, mu, inv = _inputs(2, 777, 32, 64, card, seed=1)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
     got = k1.conv_k3(x, w, b, mu, inv, 1, act)
-    torch.testing.assert_close(got, k1.conv_k3_reference(x, w, b, mu, inv, 1, act), atol=1e-4, rtol=1e-4)
+    want = k1.conv_k3_reference(x, w, b, mu, inv, 1, act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        ref = want.float()
+        assert bool(((got.float() - ref).abs() <= 2**-6 * (ref.abs() + ref.square().mean().sqrt())).all())
 
 
 def test_kernel_backward_is_the_plain_one(card):
@@ -107,6 +130,13 @@ def test_kernel_refuses_what_it_does_not_take(card):
         k1.conv_k3(x.transpose(0, 1).contiguous().transpose(0, 1), w)
     with pytest.raises(ValueError, match='on cpu'):
         k1.conv_k3(x, w.cpu())
+    for ci in (4, 144):
+        xc, wc = torch.zeros(2, 64, ci, device=card), torch.zeros(3, ci, 128, device=card)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match='C_in'):
+                k1.conv_k3(xc.to(dtype), wc.to(dtype))
+            with pytest.raises(ValueError, match='C_in'):
+                k1.conv_k3_stats(xc.to(dtype), wc.to(dtype))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -127,12 +157,36 @@ def test_k2_matches_plain(card, B, T, ci, co, stride, dtype):
         torch.testing.assert_close(inv_k, inv_r, rtol=1e-5, atol=1e-5)
 
 
-def test_k2_is_deterministic(card):
-    x, w, b, mu, inv = _inputs(4, 50_001, 16, 16, card, seed=7)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k2_is_deterministic(card, dtype):
+    # 8 x 200,001 times: thousands of tiles, more than the resident blocks.
+    x, w, b, mu, inv = _inputs(8, 200_001, 16, 16, card, seed=7)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
     first = k1.conv_k3_stats(x, w, b, mu, inv, 1, 'gelu', 1e-2)
     for _ in range(3):
         for a, e in zip(k1.conv_k3_stats(x, w, b, mu, inv, 1, 'gelu', 1e-2), first):
             assert torch.equal(a, e)
+
+
+def test_bf16_tiles(card):
+    lib = k1.build()
+    assert {key: lib.w2s_conv_k3_tile(key[0], key[0], key[1], 1) for key in BF16_TILE} == BF16_TILE
+
+
+def test_misaligned_input_takes_the_narrow_path(card):
+    """An x that is not 16-byte aligned is staged by 2-byte loads in the
+    same kernel, and agrees as an aligned one does."""
+    B, T, ci, co = 2, 700, 16, 32
+    x, w, b, mu, inv = _inputs(B, T, ci, co, card, seed=11)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    flat = torch.empty(B * T * ci + 1, dtype=torch.bfloat16, device=card)
+    shifted = flat[1:].view(B, T, ci)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for args in ((b, None, None, 2, None), (b, mu, inv, 1, 'gelu')):
+        torch.testing.assert_close(k1.conv_k3(shifted, w, *args), k1.conv_k3(x, w, *args), rtol=0, atol=0)
+        for a, e in zip(k1.conv_k3_stats(shifted, w, *args, 1e-2), k1.conv_k3_stats(x, w, *args, 1e-2)):
+            torch.testing.assert_close(a, e, rtol=0, atol=0)
 
 
 def test_convblock_kernel_stats_on_the_card(card, monkeypatch):

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.block_domain import apply_norm_act, block_stats, kernel_stats_enabled
-from ..ops.conv_k3 import SUPPORTED_C_OUT, conv_k3, conv_k3_stats
+from ..ops.conv_k3 import C_IN_RANGE, SUPPORTED_C_OUT, conv_k3, conv_k3_stats
 from .activations import get_activation
 from .norms import get_norm
 
@@ -65,7 +65,7 @@ class Conv1D(nn.Module):
             and self.padding == (1, 1)
             and dilation == 1
             and stride in (1, 2)
-            and 8 <= in_features <= 128
+            and C_IN_RANGE[0] <= in_features <= C_IN_RANGE[1]
             and features in SUPPORTED_C_OUT
         )
 

@@ -19,9 +19,13 @@ of the same kernel, so the norm that follows never reads ``y`` again. Its
 plain version is ``conv_k3_reference`` followed by ``block_stats``.
 
 The TPU kernel's space-to-depth weight embedding existed for the 128-lane
-MXU and is not carried over. What bounds the CUDA kernel on an H100, and how
-its tiles are laid out, is noted at the top of ``csrc/conv_k3.cu``: it is a
-CUDA-core kernel, bound by f32 FMA issue at the encoders' shapes.
+MXU and is not carried over. On an H100 every bf16 shape of the encoders is
+bound by HBM bytes (24 to 192 FLOPs a byte, under the ~295 where the bf16
+tensor cores stop being bound by memory), so the bf16 kernel runs its
+products on the tensor cores (``mma.sync``), stages the weights once per
+persistent block, and streams x through a ring of asynchronous copies; f32
+keeps a CUDA-core loop, which is exact against the plain version. The
+layout and the reasons are noted at the top of ``csrc/conv_k3.cu``.
 
 The library is compiled with ``nvcc`` on first use (``ops/cuda_build.py``)
 into ``build/kernels/`` at the repository root, and loaded with ``ctypes``.
@@ -48,6 +52,9 @@ LAUNCHES = 0
 STATS_LAUNCHES = 0
 
 SUPPORTED_C_OUT = (16, 32, 64, 128)
+# C_in the kernels take: a bf16 tile of 128 input channels and the weights
+# of 128 -> 128 fill the shared memory of one block.
+C_IN_RANGE = (8, 128)
 
 # Activation codes of csrc/conv_k3.cu.
 _ACT_CODES = {None: 0, 'linear': 0, 'gelu': 1, 'relu': 2, 'leaky': 3, 'silu': 4, 'swish': 4}
@@ -71,7 +78,7 @@ def build() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.w2s_conv_k3.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
         lib.w2s_conv_k3.restype = i32
-        lib.w2s_conv_k3_tile.argtypes = [i32]
+        lib.w2s_conv_k3_tile.argtypes = [i32] * 4
         lib.w2s_conv_k3_tile.restype = i32
         lib.w2s_conv_k3_stats.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr]
         lib.w2s_conv_k3_stats.restype = i32
@@ -86,8 +93,9 @@ def output_length(t_in: int, stride: int) -> int:
 def conv_k3_reference(x, w, bias=None, mu=None, inv=None, stride: int = 1, act: str | None = None):
     """Plain PyTorch version of K1: ``phi`` in f32, then ``F.conv1d``.
 
-    ``phi(x)`` is rounded to ``x``'s dtype before the conv (the kernel keeps
-    it in f32), so in bf16 the two differ by a few bf16 ulps of ``y``.
+    ``phi(x)`` is rounded to ``x``'s dtype before the conv, as the kernel
+    and the JAX kernel round it, so in bf16 the two differ by the order of
+    their f32 sums and the one rounding of ``y``.
     """
     phi = x if mu is None else apply_norm_act(x, mu, inv, get_activation(act or 'linear'))
     b = None if bias is None else bias.to(x.dtype)
@@ -129,8 +137,10 @@ def _validate(x, w, bias, mu, inv, stride):
         raise ValueError(f'conv_k3: C_out={c_out} not in {SUPPORTED_C_OUT}')
     if stride not in (1, 2):
         raise ValueError(f'conv_k3: stride {stride} not in (1, 2)')
-    if not 1 <= B <= 65535 or T < 1 or c_in < 1:
+    if not 1 <= B <= 65535 or T < 1:
         raise ValueError(f'conv_k3: unsupported x shape {tuple(x.shape)}')
+    if not C_IN_RANGE[0] <= c_in <= C_IN_RANGE[1]:
+        raise ValueError(f'conv_k3: C_in={c_in} outside {C_IN_RANGE[0]}..{C_IN_RANGE[1]}')
     _check('x', x, x.device, x.dtype, x.shape)
     _check('w', w, x.device, x.dtype, (3, c_in, c_out))
     if bias is not None:
@@ -168,7 +178,7 @@ def _launch_stats(x, w, bias, mu, inv, stride, act, eps):
     B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
     t_out = output_length(T, stride)
     lib = build()
-    tile = lib.w2s_conv_k3_tile(c_out)
+    tile = lib.w2s_conv_k3_tile(c_out, c_in, stride, _DTYPE_CODES[x.dtype])
     n_tiles = -(-t_out // tile)
     dev = x.device
     y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=dev)

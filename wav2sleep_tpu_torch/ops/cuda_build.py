@@ -2,9 +2,10 @@
 
 Each ``.cu`` file has a plain C interface and is compiled on first use, for
 sm_90a, into ``build/kernels/`` at the repository root, under a name that
-carries a hash of the source and the flags (a changed source builds anew; an
-unchanged one is reused). The caller loads it with ``ctypes``. Sources are
-independent, so several builds may run at once (one ``nvcc`` each).
+carries a hash of every file in ``csrc/`` and of the flags (an edit to the
+source or to a header it includes builds anew; an unchanged tree is
+reused). The caller loads it with ``ctypes``. Sources are independent, so
+several builds may run at once (one ``nvcc`` each).
 """
 
 from __future__ import annotations
@@ -33,13 +34,22 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels')
 
 
+def library_path(source_name: str) -> Path:
+    """Where the build of ``csrc/<source_name>`` goes: named by a hash of
+    the source's name, every file under ``csrc/`` (so an edited header
+    counts) and the flags."""
+    digest = hashlib.sha256(f'{source_name}\0{" ".join(NVCC_FLAGS)}'.encode())
+    for path in sorted(p for p in CSRC.rglob('*') if p.is_file()):
+        digest.update(f'\0{path.relative_to(CSRC).as_posix()}\0'.encode() + path.read_bytes())
+    return BUILD_DIR / f'lib{Path(source_name).stem}_{digest.hexdigest()[:16]}.so'
+
+
 def compile_library(source_name: str) -> tuple[Path, str]:
     """Compile ``csrc/<source_name>`` unless its build is cached; returns
     the library's path and nvcc's output (the ptxas register and
     shared-memory report; empty when the library came from the cache)."""
     source = CSRC / source_name
-    tag = hashlib.sha256(source.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f'lib{source.stem}_{tag}.so'
+    lib_path = library_path(source_name)
     if lib_path.exists():
         return lib_path, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
