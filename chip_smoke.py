@@ -20,7 +20,8 @@ Phases (any failure raises, so the script exits non-zero):
    (``bench_conv.both_ms``): CUDA events around one call, median of 10
    (the times of the kernels line), and around runs of 10 back-to-back
    calls, median of 5 (the card's time alone, without the host's time per
-   call); each call's bound and the share of it reached.
+   call); each call's bound and the share of it reached; per dtype, the
+   shapes at which K1 is slower than ``F.conv1d``.
 4. K2 (``conv_k3_stats``) at the same shapes: y as K1's is checked; mu and inv
    within atol/rtol 1e-5 (f32) and 1e-3 (bf16) of ``block_stats`` of the
    plain output; times of K2, of K1 + ``block_stats``, and of the plain
@@ -34,7 +35,8 @@ Phases (any failure raises, so the script exits non-zero):
    1e-3 of |z|, see ``EMA_HOST_RTOL``), and on
    the first 65,536 samples against ``ema_normalize_reference`` on the card
    (atol 1e-4; the warm-up window of the prefix equals the full row's, which
-   is checked); median time per forward.
+   is checked); median time per forward, and the nanoseconds per step of
+   the longest row that follow from it.
 6. Model: the recorded goldens (tests/goldens) on the card; the flagship at
    full width (f32, 2 one-hour nights, seeded random weights) on the kernel
    path against the plain path, 80 K1 launches per forward; the flagship bf16
@@ -74,6 +76,8 @@ import numpy as np
 
 from wav2sleep_tpu_torch.bench_conv import SHAPES as KERNEL_SHAPES
 from wav2sleep_tpu_torch.bench_conv import both_ms, cuda_ms
+from wav2sleep_tpu_torch.bench_ema import rates as ema_rates
+from wav2sleep_tpu_torch.bench_ema import serving_rows
 from wav2sleep_tpu_torch.pipeline import grid_length
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -183,7 +187,8 @@ def phase_build(k1, k3, native):
 def phase_k1(torch, F, k1, block_stats):
     """K1 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    max_f32_err, line, slower = 0.0, None, ([], [])
+    max_f32_err, line = 0.0, None
+    slower = {'float32': ([], []), 'bfloat16': ([], [])}
     for ci, co, stride, T in KERNEL_SHAPES:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
@@ -229,8 +234,8 @@ def phase_k1(torch, F, k1, block_stats):
                     del lib
                     lib_ms = both_ms(lambda: F.conv1d(x.transpose(1, 2), w_oik, b, stride=stride, padding=1))
                     for i in (0, 1):
-                        if name == 'bfloat16' and ms[i] > lib_ms[i]:
-                            slower[i].append(f'{ci}->{co} s{stride}')
+                        if ms[i] > lib_ms[i]:
+                            slower[name][i].append(f'{ci}->{co} s{stride}')
                 bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', False)
                 log(f'K1 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok; '
                     f'ms one call (back to back): K1 {fmt(ms)}, plain {fmt(plain_ms)}, F.conv1d '
@@ -243,9 +248,10 @@ def phase_k1(torch, F, k1, block_stats):
                 del got, want, diff
         del x32, x, mu, inv
         torch.cuda.empty_cache()
-    for how, shapes in zip(('one call', 'back to back'), slower):
-        log(f'K1 bf16 identity slower than F.conv1d at {len(shapes)} of {len(KERNEL_SHAPES)} shapes ({how})'
-            f'{": " + ", ".join(shapes) if shapes else ""}')
+    for name, short in (('bfloat16', 'bf16'), ('float32', 'f32')):
+        for how, shapes in zip(('one call', 'back to back'), slower[name]):
+            log(f'K1 {short} identity slower than F.conv1d at {len(shapes)} of {len(KERNEL_SHAPES)} shapes ({how})'
+                f'{": " + ", ".join(shapes) if shapes else ""}')
     return max_f32_err, line
 
 
@@ -347,30 +353,10 @@ def phase_forward_convs(torch, F, k1, layers, wav2sleep):
         f'bound {tot["bound"]:.3f} ms ({tot["bytes"] / 1e9:.2f} GB, {tot["flops"] / 1e9:.1f} GFLOP)')
 
 
-def serving_rows(torch, seed: int) -> list:
-    """One serving batch of f32 rows per modality, on the card: 8 ten-hour
-    nights at each modality's grid rate; a drifting oscillation plus noise,
-    with a few outliers."""
-    g = torch.Generator(device='cuda').manual_seed(seed)
-    rows = []
-    for col in SIGNALS:
-        n = grid_length(col, HOURS)
-        t = torch.arange(n, device='cuda', dtype=torch.float32) / n
-        amp = torch.rand((BATCH, 1), device='cuda', generator=g) * 2 + 0.1
-        freq = torch.rand((BATCH, 1), device='cuda', generator=g) * 4000 + 500
-        x = amp * torch.sin(freq * t) + 0.5 * torch.sin(7 * t) + 0.2 * torch.randn((BATCH, n), device='cuda', generator=g)
-        spikes = torch.randint(0, n, (BATCH, 4), device='cuda', generator=g)
-        x.scatter_(1, spikes, 25.0)
-        rows.append(x.contiguous())
-    return rows
-
-
-def phase_k3(torch, k3, settings):
+def phase_k3(torch, k3):
     """K3 on one serving batch's rows; returns (max |d| vs plain, the line's call, ms per forward)."""
-    fss = [settings.COLS_TO_SAMPLES_PER_EPOCH[c] / settings.EPOCH_SECONDS for c in SIGNALS]
-    args = dict(tau_seconds=settings.CAUSAL_NORM_TAU_SECONDS,
-                baseline_tau_seconds=settings.CAUSAL_NORM_BASELINE_TAU_SECONDS)
-    xs = serving_rows(torch, seed=3)
+    fss, args = ema_rates()
+    xs = serving_rows(seed=3)
     got = k3.ema_normalize(xs, fss, **args)
     torch.cuda.synchronize()
     # (a) Whole rows against the host f64 recurrence.
@@ -412,9 +398,11 @@ def phase_k3(torch, k3, settings):
     rows_prefix = 4 * BATCH * EMA_PREFIX
     bound_ms, bound_by = bound(rows_prefix * 8, rows_prefix * 14, 'float32')
     fwd_bound, _ = bound(sum(x.numel() for x in xs) * 8, sum(x.numel() for x in xs) * 14, 'float32')
+    longest = max(x.shape[1] for x in xs)
     log(f'K3 prefix ({4 * BATCH} rows x {EMA_PREFIX}): kernel {ms_prefix:.3f} ms, plain {plain_ms:.1f} ms '
         f'(one run), bound {bound_ms:.4f} ms ({bound_by}); one forward\'s rows '
-        f'({sum(x.numel() for x in xs)} samples, one launch): {ms_forward:.3f} ms, bound {fwd_bound:.4f} ms')
+        f'({sum(x.numel() for x in xs)} samples, one launch): {ms_forward:.3f} ms, bound {fwd_bound:.4f} ms, '
+        f'{1e6 * ms_forward / longest:.2f} ns per step of the longest row ({longest} samples)')
     call_prefix = cuda_ms(lambda: k3.ema_normalize(heads, fss, **args), reps=5, warmup=1, inner=10)
     line = dict(ms=ms_prefix, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 call_ms=call_prefix, plain_call_ms=None, library_call_ms=None)
@@ -715,7 +703,7 @@ def main() -> int:
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA card')
     import torch.nn.functional as F
 
-    from wav2sleep_tpu_torch import native, pipeline, settings
+    from wav2sleep_tpu_torch import native, pipeline
     from wav2sleep_tpu_torch.models import layers, wav2sleep
     from wav2sleep_tpu_torch.ops import block_domain as bd
     from wav2sleep_tpu_torch.ops import conv_k3 as k1
@@ -733,7 +721,7 @@ def main() -> int:
         k1_err, k1_line = phase_k1(torch, F, k1, bd.block_stats)
         k2_err, k2_line = phase_k2(torch, k1, bd.block_stats)
         phase_forward_convs(torch, F, k1, layers, wav2sleep)
-        k3_err, k3_line, _ = phase_k3(torch, k3, settings)
+        k3_err, k3_line, _ = phase_k3(torch, k3)
     phase_model(torch, k1, k3, bd, layers, wav2sleep)
     phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card)
     main_counts, stats_counts = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card)

@@ -22,6 +22,9 @@ pytestmark = pytest.mark.cuda
 # stride): ``w2s_conv_k3_tile``, checked by ``test_bf16_tiles``.
 BF16_TILE = {(16, 1): 512, (16, 2): 256, (32, 1): 256, (32, 2): 128,
              (64, 1): 128, (64, 2): 128, (128, 1): 64, (128, 2): 64}
+# The same for the f32 kernel (any C_in), checked by ``test_f32_tiles``.
+F32_TILE = {(16, 1): 512, (16, 2): 512, (32, 1): 512, (32, 2): 512,
+            (64, 1): 256, (64, 2): 256, (128, 1): 128, (128, 2): 128}
 
 CASES = [
     # (B, T, C_in, C_out, stride): the encoder shapes, plus ragged lengths,
@@ -49,7 +52,13 @@ CASES = [
     (2, stride * (tile + d), co, co, stride)
     for (co, stride), tile in BF16_TILE.items()
     for d in (-1, 0, 1)
-]
+] + [
+    # The same at the f32 tiles, and with C_in = 12 (a ragged second
+    # 8-channel chunk) and one batch row.
+    (2, stride * (tile + d), co, co, stride)
+    for (co, stride), tile in F32_TILE.items()
+    for d in (-1, 0, 1)
+] + [(1, stride * (tile + 1), 12, co, stride) for (co, stride), tile in F32_TILE.items()]
 
 
 @pytest.fixture
@@ -173,6 +182,29 @@ def test_bf16_tiles(card):
     assert {key: lib.w2s_conv_k3_tile(key[0], key[0], key[1], 1) for key in BF16_TILE} == BF16_TILE
 
 
+def test_f32_tiles(card):
+    lib = k1.build()
+    for ci in (8, 12, 128):
+        assert {key: lib.w2s_conv_k3_tile(key[0], ci, key[1], 0) for key in F32_TILE} == F32_TILE
+
+
+def test_f32_misaligned_input(card):
+    """An f32 x that is not 16-byte aligned agrees as an aligned one does
+    (the f32 kernel stages x by 4-byte copies)."""
+    B, T, ci, co = 2, 1_000, 24, 64
+    x, w, b, mu, inv = _inputs(B, T, ci, co, card, seed=12)
+    flat = torch.empty(B * T * ci + 1, device=card)
+    shifted = flat[1:].view(B, T, ci)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for args in ((b, None, None, 2, None), (b, mu, inv, 1, 'gelu')):
+        torch.testing.assert_close(k1.conv_k3(shifted, w, *args), k1.conv_k3(x, w, *args), rtol=0, atol=0)
+        torch.testing.assert_close(k1.conv_k3(shifted, w, *args), k1.conv_k3_reference(x, w, *args),
+                                   rtol=1e-4, atol=1e-4)
+        for a, e in zip(k1.conv_k3_stats(shifted, w, *args, 1e-2), k1.conv_k3_stats(x, w, *args, 1e-2)):
+            torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
 def test_misaligned_input_takes_the_narrow_path(card):
     """An x that is not 16-byte aligned is staged by 2-byte loads in the
     same kernel, and agrees as an aligned one does."""
@@ -221,6 +253,55 @@ def test_k3_matches_plain(card):
     want = ema_norm.ema_normalize_reference(xs, fss, baseline_tau_seconds=120.0)
     for a, e in zip(got, want):
         assert a.shape == e.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
+
+
+def _k3_rows(device):
+    """The rows of tests/test_torch_ema.py's clip, floor and length cases, one group each, made
+    the same way: a spike of 25 every 250-400 samples (the clip binds),
+    variance under min_sigma**2 (the floor binds), and lengths around the
+    kernel's 32-sample chunks and its ring of 4 chunks ahead."""
+    rng = np.random.default_rng(6)
+    clip = rng.normal(size=(2, 12_000)).astype(np.float32)
+    for row in clip:
+        row[np.cumsum(rng.integers(250, 400, size=30))] = 25.0
+    rng = np.random.default_rng(7)
+    floor = np.stack([rng.normal(size=3_000) * 0.01 + 3.0, np.full(3_000, -2.0)]).astype(np.float32)
+    groups = [(clip, 1024 / 30), (floor, 256 / 30)]
+    for T in (1, 31, 32, 33, 2_049, 159, 160, 161, 32 * 9 + 5):
+        groups.append((np.random.default_rng(T).normal(size=(3, T)).astype(np.float32) * 2 + 1, 34.13))
+    return [torch.from_numpy(x).to(device) for x, _ in groups], [fs for _, fs in groups]
+
+
+def test_k3_matches_plain_where_the_clip_and_the_floor_bind(card):
+    """All the groups in one launch, against the plain version on the card
+    (atol 1e-4; both round op by op in one order)."""
+    xs, fss = _k3_rows(card)
+    before = ema_norm.LAUNCHES
+    got = ema_norm.ema_normalize(xs, fss, baseline_tau_seconds=120.0)
+    assert ema_norm.LAUNCHES == before + 1
+    want = ema_norm.ema_normalize_reference(xs, fss, baseline_tau_seconds=120.0)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
+
+
+def test_k3_causal_prefix(card):
+    """A row's first samples through the kernel alone equal the kernel's
+    output for them inside the whole row (same warm-up window), as
+    chip_smoke.py's prefix check assumes; several modalities in one launch."""
+    g = torch.Generator(device=card).manual_seed(5)
+    fss = [1024 / 30, 256 / 30]
+    xs = [torch.randn(2, 200_000, device=card, generator=g), torch.randn(3, 120_000, device=card, generator=g) * 3]
+    args = dict(tau_seconds=900.0, baseline_tau_seconds=120.0)
+    heads = [x[:, :45_000].contiguous() for x in xs]
+    for x, h, fs in zip(xs, heads, fss):
+        assert ema_norm.warmup_length(x.shape[1], fs, **args) == ema_norm.warmup_length(h.shape[1], fs, **args)
+    full = ema_norm.ema_normalize(xs, fss, **args)
+    head = ema_norm.ema_normalize(heads, fss, **args)
+    for a, z in zip(head, full):
+        torch.testing.assert_close(a, z[:, :45_000], rtol=0, atol=0)
+    for a, e in zip(head, ema_norm.ema_normalize_reference(heads, fss, **args)):
         torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
 
 

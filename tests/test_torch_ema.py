@@ -25,10 +25,29 @@ def _rows(case):
         return x, 34.0, 120.0, 512
     if case == 'single':
         return np.random.default_rng(1).normal(size=(1, 4_096)).astype(np.float32), 8.533, None, 512
+    if case == 'clip_binds':
+        # A spike of 25 (about 25 sigma) every 250-400 samples: the clip
+        # binds at every spike.
+        rng = np.random.default_rng(6)
+        x = rng.normal(size=(2, 12_000)).astype(np.float32)
+        for row in x:
+            row[np.cumsum(rng.integers(250, 400, size=30))] = 25.0
+        return x, 1024 / 30, 120.0, 512
+    if case == 'floor_binds':
+        # Variance 1e-4 and 0, under min_sigma**2 = 1e-2: the floor binds.
+        rng = np.random.default_rng(7)
+        x = np.stack([rng.normal(size=3_000) * 0.01 + 3.0, np.full(3_000, -2.0)]).astype(np.float32)
+        return x, 256 / 30, 120.0, 256
+    if case.startswith('length'):
+        T = int(case[len('length'):])
+        return np.random.default_rng(T).normal(size=(3, T)).astype(np.float32) * 2 + 1, 34.13, 120.0, 256
     return np.random.default_rng(2).normal(size=(5, 1_111)).astype(np.float32), 34.0, None, 256
 
 
-CASES = ['multichannel', 'single', 'ragged']
+# Lengths around the kernel's 32-sample chunks (one sample, a part of one
+# chunk, one, one and a bit, many and a bit).
+LENGTHS = [f'length{T}' for T in (1, 31, 32, 33, 2_049)]
+CASES = ['multichannel', 'single', 'ragged', 'clip_binds', 'floor_binds'] + LENGTHS
 
 
 @pytest.fixture(scope='module')
@@ -56,6 +75,32 @@ def test_matches_host_f64(port_out, case):
     for i in range(x.shape[0]):
         want = causal_rolling_normalize(x[i], fs, baseline_tau_seconds=btau)
         np.testing.assert_allclose(port_out[case][i], want, atol=5e-3, rtol=0)
+
+
+def _binds(x, fs, btau):
+    """Steps of the f64 recurrence at which the clip binds, and at which
+    the variance floor does, over all rows."""
+    ab, av = ema_norm._rates(fs, CAUSAL_NORM_TAU_SECONDS, btau)
+    min_ss = 0.1**2
+    clips = floors = 0
+    for row in x.astype(np.float64):
+        warm = row[: ema_norm.warmup_length(len(row), fs, CAUSAL_NORM_TAU_SECONDS, btau)]
+        mu, ss = warm.mean(), max(warm.var(), min_ss)
+        for v in row[1:]:
+            mu = ab * v + (1 - ab) * mu
+            m = max(ss, min_ss)
+            floors += ss < min_ss
+            clips += (v - mu) ** 2 > 16 * m
+            ss = av * min((v - mu) ** 2, 16 * m) + (1 - av) * ss
+    return clips, floors
+
+
+def test_cases_reach_the_clip_and_the_floor():
+    """The clip and floor cases exercise what they are named for."""
+    clips, _ = _binds(*_rows('clip_binds')[:3])
+    assert clips >= 50
+    _, floors = _binds(*_rows('floor_binds')[:3])
+    assert floors >= 2 * 2_999 - 10
 
 
 def test_groups_in_one_call_equal_separate_calls():

@@ -55,20 +55,35 @@
 //   memory, written to y in 16-byte vectors; K2 reduces the staged (stored)
 //   tile.
 //
-// f32 (conv_k3_f32_kernel) keeps a CUDA-core loop: the tensor cores would
-// take f32 through TF32, from an exact result (max |d| 0 against the plain
-// version) to ~1e-3, past the f32 checks. f32 is not the serving dtype.
-// Each thread keeps a 4 x 4 register tile (4 times x 4 channels) of outputs
-// over phi(x) and weights staged per 16-channel chunk.
+// f32 design (conv_k3_f32_kernel): CUDA cores and exact fmaf. The tensor
+// cores would take f32 through TF32, from an exact result (max |d| 0 against
+// the plain version) to ~1e-3, past the f32 checks; on the CUDA cores the
+// f32 shapes with C_in and C_out of 32 or more at stride 1, and of 64 or
+// more at stride 2, are bound by the FMA rate (67 TFLOP/s, ~20 FLOPs a
+// byte). So the design keeps the FMA pipes fed:
+// - Each thread holds an 8 x 8 register tile (8 consecutive times x 8
+//   channels, two runs of 4), 192 FMAs per input channel from 3-5 float4
+//   reads of x and 6 of w in shared memory.
+// - A block covers 128 (C_out 128) to 512 (C_out 16, 32) output times, so w
+//   is read from L2 once per 128-512 times, 2-4x less often than by the
+//   4 x 4 loop this design replaced.
+// - Input channels come through a two-slot ring in chunks of 8: x transposed
+//   to [channel][time] (a thread's times are one float4 read) and w, by
+//   4-byte cp.async copies with zero fill outside [0, t_in) and past C_in,
+//   in flight while the previous chunk computes; phi applied once per
+//   element in the slot.
 //
-// Measured with chip_smoke.py and profile_forward on an NVIDIA H100 80GB
-// HBM3 at 700 W, B=8, as runs of 10 back-to-back calls (one call per
-// CUDA-event pair adds the host's ~40 us a call): bf16 16->16 s1 over
-// 1,228,800 times, phi the identity, 0.271 ms (69% of its 0.188 ms bytes
-// bound; F.conv1d 3.20 ms), with norm + gelu 0.669 ms (28%); 128->128 s1
-// over 19,200 times 0.108 ms (22% of 0.024 ms), with norm + gelu 0.171 ms.
-// One flagship forward's 80 calls take ~10 ms of device time against a
-// 3.0 ms bound. Per shape: PERF.md.
+// Measured with chip_smoke.py and bench_conv on an NVIDIA H100 80GB HBM3 at
+// 700 W, B=8, as runs of 10 back-to-back calls (one call per CUDA-event pair
+// adds the host's ~40 us a call): bf16 16->16 s1 over 1,228,800 times, phi
+// the identity, 0.271 ms (69% of its 0.188 ms bytes bound; F.conv1d 3.20
+// ms), with norm + gelu 0.669 ms (28%); 128->128 s1 over 19,200 times 0.108
+// ms (22% of 0.024 ms), with norm + gelu 0.171 ms. One flagship forward's 80
+// bf16 calls take ~10 ms of device time against a 3.0 ms bound. f32
+// 128->128 s1 0.503 ms (45% of its 0.225 ms FMA bound; the 4 x 4 loop with
+// w staged per 32 times before it: 0.755; F.conv1d without TF32: 0.635),
+// 16->16 s1 0.669 ms (56% of 0.376 ms, bytes); no f32 shape is slower than
+// F.conv1d. Per shape: PERF.md.
 //
 // Plain C interface, loaded with ctypes; see ops/conv_k3.py.
 
@@ -79,8 +94,6 @@
 #include <cstdint>
 
 namespace {
-
-constexpr int kF32Threads = 256;
 
 enum Act { kLinear = 0, kGelu = 1, kRelu = 2, kLeaky = 3, kSilu = 4 };
 
@@ -94,40 +107,128 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; bytes past
+// src_bytes (all 16 when 0) are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes, zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------- f32 ----
 
-constexpr int kChunk = 16;          // input channels staged per step
-constexpr int kTimes = 4;           // consecutive output times per thread
-constexpr int kChans = 4;           // output channels per thread
-constexpr int kPitch = kChunk + 1;  // staged row pitch; odd to spread banks
+constexpr int kChunk = 8;  // input channels staged per ring slot
+constexpr int kTimes = 8;  // consecutive output times per thread
+constexpr int kChans = 8;  // output channels per thread: two runs of 4
+
+// Thread layout of the f32 kernel: CO / kChans channel groups x kGroupsT
+// time groups; a tile is kGroupsT * kTimes output times (128 at C_out 128,
+// 256 at 64, 512 at 32 and 16).
+template <int CO>
+struct F32Tiling {
+  static constexpr int kGroupsC = CO / kChans;
+  static constexpr int kGroupsT = CO == 16 ? 64 : 2048 / CO;
+  static constexpr int kThreads = kGroupsC * kGroupsT;  // 256, or 128 at C_out 16
+  static constexpr int kTile = kGroupsT * kTimes;
+};
 
 template <int CO>
-constexpr int f32_tile() { return (kF32Threads / (CO / kChans)) * kTimes; }
+constexpr int f32_tile() { return F32Tiling<CO>::kTile; }
 
-// One block: one batch row, kTT consecutive output times, all CO channels.
-// With STATS, part[0] and part[1] ([batch, CO, gridDim.x] each) receive the
-// tile's per-channel mean and M2 of the outputs.
+// Staged x of one slot is [kChunk][pitch] (channel-major: a thread's
+// consecutive times are consecutive floats, read as float4); the window's
+// S * tile + 2 rows, and room for the float4 reads past them. pitch = 4
+// (mod 32) words, so the 8 channels of a staging store hit 8 bank groups.
+template <int CO, int S>
+__host__ __device__ constexpr int f32_pitch() { return S * F32Tiling<CO>::kTile + 4; }
+
+// Floats of one ring slot: x [kChunk][pitch], then w [kChunk][3][CO].
+template <int CO, int S>
+__host__ __device__ constexpr int f32_slot() { return kChunk * f32_pitch<CO, S>() + kChunk * 3 * CO; }
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One block: one batch row, kTile consecutive output times, all CO channels.
+// Input channels go through a two-slot ring in chunks of kChunk: x (zero
+// outside [0, t_in) and beyond c_in) and w come in by 4-byte cp.async copies,
+// transposed into the slot, while the previous chunk computes; phi, when
+// fused, is applied once per element in the slot. With STATS, part[0] and
+// part[1] ([batch, CO, gridDim.x] each) receive the tile's per-channel mean
+// and M2 of the outputs.
 template <int CO, int S, bool STATS>
-__global__ void __launch_bounds__(kF32Threads) conv_k3_f32_kernel(
+__global__ void __launch_bounds__(F32Tiling<CO>::kThreads, 512 / F32Tiling<CO>::kThreads) conv_k3_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ mu, const float* __restrict__ inv, float* __restrict__ y,
     float* __restrict__ part, int t_in, int t_out, int c_in, int act) {
-  constexpr int kGroupsC = CO / kChans;            // channel groups per block
-  constexpr int kGroupsT = kF32Threads / kGroupsC;    // time groups per block
-  constexpr int kTT = kGroupsT * kTimes;           // output times per block
-  constexpr int kRows = kTT * S + 2;               // input window incl. halo
-  constexpr int kWin = kTimes * S + 2;             // input rows one thread reads
-  __shared__ float xs[kRows * kPitch];
-  __shared__ __align__(16) float ws[kChunk * 3 * CO];
+  using Tl = F32Tiling<CO>;
+  constexpr int kThreads = Tl::kThreads, kTT = Tl::kTile;
+  constexpr int kPitch = f32_pitch<CO, S>();
+  constexpr int kSlot = f32_slot<CO, S>();
+  constexpr int kRows = kTT * S + 2;          // staged window rows incl. halo
+  constexpr int kVec = S == 1 ? 3 : 5;         // float4 reads of x a thread makes per channel
+  extern __shared__ __align__(16) float smem_f32[];
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kTT;
   const long in0 = (long)t0 * S - 1;  // input time of window row 0
-  const int tc = threadIdx.x % kGroupsC;
-  const int tt = threadIdx.x / kGroupsC;
+  const int tid = threadIdx.x;
+  const int tc = tid % Tl::kGroupsC, tt = tid / Tl::kGroupsC;
   const float* xb = x + (size_t)b * t_in * c_in;
-  const float* mub = mu ? mu + (size_t)b * c_in : nullptr;
-  const float* invb = inv ? inv + (size_t)b * c_in : nullptr;
+  const bool fused = mu != nullptr;
+  const int n_chunks = (c_in + kChunk - 1) / kChunk;
+
+  auto load = [&](int chunk, int slot) {
+    float* xs = smem_f32 + slot * kSlot;
+    float* ws = xs + kChunk * kPitch;
+    const int c0 = chunk * kChunk;
+    for (int e = tid; e < kRows * kChunk; e += kThreads) {
+      const int r = e / kChunk, c = e % kChunk, ch = c0 + c;
+      const long t = in0 + r;
+      const bool ok = t >= 0 && t < t_in && ch < c_in;
+      cp_async4z(smem_u32(xs + c * kPitch + r), ok ? xb + (size_t)t * c_in + ch : x, ok ? 4 : 0);
+    }
+    // ws[(c * 3 + j) * CO + o] = w[j, c0 + c, o]
+    for (int e = tid; e < kChunk * 3 * CO; e += kThreads) {
+      const int o = e % CO, jc = e / CO, j = jc % 3, c = jc / 3, ch = c0 + c;
+      const bool ok = ch < c_in;
+      cp_async4z(smem_u32(ws + e), ok ? w + ((size_t)j * c_in + ch) * CO + o : w, ok ? 4 : 0);
+    }
+  };
+
+  // phi in place on the slot's x, once per element; rows outside [0, t_in)
+  // and channels past c_in stay zero.
+  auto apply_phi = [&](int chunk, int slot) {
+    float* xs = smem_f32 + slot * kSlot;
+    const int c0 = chunk * kChunk;
+    for (int e = tid; e < kRows * kChunk; e += kThreads) {
+      const int c = e / kRows, r = e % kRows, ch = c0 + c;
+      const long t = in0 + r;
+      if (t < 0 || t >= t_in || ch >= c_in) continue;
+      float& v = xs[c * kPitch + r];
+      v = activate((v - mu[(size_t)b * c_in + ch]) * inv[(size_t)b * c_in + ch], act);
+    }
+  };
 
   float acc[kTimes][kChans];
 #pragma unroll
@@ -135,66 +236,71 @@ __global__ void __launch_bounds__(kF32Threads) conv_k3_f32_kernel(
 #pragma unroll
     for (int r = 0; r < kChans; ++r) acc[i][r] = 0.0f;
 
-  for (int c0 = 0; c0 < c_in; c0 += kChunk) {
-    // Stage phi(x) for the window's rows and this chunk's channels. Rows
-    // outside [0, t_in) are the conv's zero padding of phi(x).
-    for (int e = threadIdx.x; e < kRows * kChunk; e += kF32Threads) {
-      const int row = e / kChunk, c = e % kChunk, ch = c0 + c;
-      const long t = in0 + row;
-      float v = 0.0f;
-      if (t >= 0 && t < t_in && ch < c_in) {
-        v = xb[(size_t)t * c_in + ch];
-        if (mub) v = activate((v - mub[ch]) * invb[ch], act);
-      }
-      xs[row * kPitch + c] = v;
-    }
-    // Stage weights as ws[(c * 3 + j) * CO + o] = w[j, c0 + c, o].
-    for (int e = threadIdx.x; e < kChunk * 3 * CO; e += kF32Threads) {
-      const int o = e % CO, jc = e / CO, j = jc % 3, c = jc / 3, ch = c0 + c;
-      ws[e] = ch < c_in ? w[((size_t)j * c_in + ch) * CO + o] : 0.0f;
-    }
+  load(0, 0);
+  cp_async_commit();
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) load(k + 1, (k + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: chunk k has landed
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kChunk; ++c) {
-      float xv[kWin];
+    if (fused) {
+      apply_phi(k, k & 1);
+      __syncthreads();
+    }
+    const float* xs = smem_f32 + (k & 1) * kSlot;
+    const float* ws = xs + kChunk * kPitch;
 #pragma unroll
-      for (int m = 0; m < kWin; ++m) xv[m] = xs[(tt * kTimes * S + m) * kPitch + c];
+    for (int c = 0; c < kChunk; ++c) {
+      float4 xv[kVec];
+#pragma unroll
+      for (int q = 0; q < kVec; ++q)
+        xv[q] = *reinterpret_cast<const float4*>(xs + c * kPitch + tt * kTimes * S + 4 * q);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[(c * 3 + j) * CO + tc * kChans]);
+        const float* wr = ws + (c * 3 + j) * CO + tc * 4;
+        const float4 wa = *reinterpret_cast<const float4*>(wr);
+        const float4 wb = *reinterpret_cast<const float4*>(wr + CO / 2);
 #pragma unroll
         for (int i = 0; i < kTimes; ++i) {
-          const float v = xv[i * S + j];
-          acc[i][0] = fmaf(wv.x, v, acc[i][0]);
-          acc[i][1] = fmaf(wv.y, v, acc[i][1]);
-          acc[i][2] = fmaf(wv.z, v, acc[i][2]);
-          acc[i][3] = fmaf(wv.w, v, acc[i][3]);
+          const int m = i * S + j;
+          const float v = lane4(xv[m / 4], m % 4);
+          acc[i][0] = fmaf(wa.x, v, acc[i][0]);
+          acc[i][1] = fmaf(wa.y, v, acc[i][1]);
+          acc[i][2] = fmaf(wa.z, v, acc[i][2]);
+          acc[i][3] = fmaf(wa.w, v, acc[i][3]);
+          acc[i][4] = fmaf(wb.x, v, acc[i][4]);
+          acc[i][5] = fmaf(wb.y, v, acc[i][5]);
+          acc[i][6] = fmaf(wb.z, v, acc[i][6]);
+          acc[i][7] = fmaf(wb.w, v, acc[i][7]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the slot is free for the load two chunks on
   }
 
-  float bv[kChans];
+  // Output channel of accumulator column r.
+  auto chan = [&](int r) { return r < 4 ? tc * 4 + r : CO / 2 + tc * 4 + (r - 4); };
 #pragma unroll
-  for (int r = 0; r < kChans; ++r) bv[r] = bias ? bias[tc * kChans + r] : 0.0f;
+  for (int r = 0; r < kChans; ++r) {
+    const float bv = bias ? bias[chan(r)] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kTimes; ++i) acc[i][r] += bv;
+  }
 #pragma unroll
   for (int i = 0; i < kTimes; ++i) {
     const int t = t0 + tt * kTimes + i;
-#pragma unroll
-    for (int r = 0; r < kChans; ++r) acc[i][r] += bv[r];
     if (t >= t_out) continue;
-    float* yp = y + ((size_t)b * t_out + t) * CO + tc * kChans;
-#pragma unroll
-    for (int r = 0; r < kChans; ++r) yp[r] = acc[i][r];
+    float* yp = y + ((size_t)b * t_out + t) * CO;
+    *reinterpret_cast<float4*>(yp + tc * 4) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(yp + CO / 2 + tc * 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
 
   if constexpr (STATS) {
     // Per-channel sum over the tile, then M2 about the tile's mean: each
     // thread reduces its kTimes outputs, shared memory the kGroupsT threads
-    // of a channel group, in a fixed order.
-    __shared__ float red[kGroupsT * CO];
-    __shared__ float tmean[CO];
+    // of a channel group, in a fixed order. The ring's slots are free now.
+    float* red = smem_f32;                    // [kGroupsT][CO]
+    float* tmean = red + Tl::kGroupsT * CO;  // [CO]
     const int n_valid = min(kTT, t_out - t0);
     const int t_first = t0 + tt * kTimes;
 #pragma unroll
@@ -202,33 +308,33 @@ __global__ void __launch_bounds__(kF32Threads) conv_k3_f32_kernel(
       float s = 0.0f;
 #pragma unroll
       for (int i = 0; i < kTimes; ++i) s += t_first + i < t_out ? acc[i][r] : 0.0f;
-      red[tt * CO + tc * kChans + r] = s;
+      red[tt * CO + chan(r)] = s;
     }
     __syncthreads();
-    if (threadIdx.x < CO) {
+    if (tid < CO) {
       float s = 0.0f;
-      for (int k = 0; k < kGroupsT; ++k) s += red[k * CO + threadIdx.x];
-      tmean[threadIdx.x] = s / (float)n_valid;
+      for (int g = 0; g < Tl::kGroupsT; ++g) s += red[g * CO + tid];
+      tmean[tid] = s / (float)n_valid;
     }
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kChans; ++r) {
-      const float m = tmean[tc * kChans + r];
+      const float m = tmean[chan(r)];
       float q = 0.0f;
 #pragma unroll
       for (int i = 0; i < kTimes; ++i) {
         const float d = acc[i][r] - m;
         q += t_first + i < t_out ? d * d : 0.0f;
       }
-      red[tt * CO + tc * kChans + r] = q;
+      red[tt * CO + chan(r)] = q;
     }
     __syncthreads();
-    if (threadIdx.x < CO) {
+    if (tid < CO) {
       float q = 0.0f;
-      for (int k = 0; k < kGroupsT; ++k) q += red[k * CO + threadIdx.x];
-      const size_t o = ((size_t)b * CO + threadIdx.x) * gridDim.x + blockIdx.x;
+      for (int g = 0; g < Tl::kGroupsT; ++g) q += red[g * CO + tid];
+      const size_t o = ((size_t)b * CO + tid) * gridDim.x + blockIdx.x;
       const size_t plane = (size_t)gridDim.y * CO * gridDim.x;
-      part[o] = tmean[threadIdx.x];
+      part[o] = tmean[tid];
       part[plane + o] = q;
     }
   }
@@ -279,28 +385,6 @@ int bf16_tile(int c_in, int stride) {
   for (n = n < 1 ? 1 : n; n > 0; --n)
     if (bf16_smem<CO>(c_in, stride, n * pass) <= kMaxSmem) break;
   return n * pass;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; bytes past
-// src_bytes (all 16 when 0) are zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -596,11 +680,16 @@ int merge(const Args& a, int c_out, int n_tiles, int tile) {
 template <int CO, int S, bool STATS>
 int launch_f32(const Args& a) {
   constexpr int kTT = f32_tile<CO>();
+  constexpr size_t kSmem = 2 * sizeof(float) * f32_slot<CO, S>();
+  const auto kernel = conv_k3_f32_kernel<CO, S, STATS>;
+  int rc = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem)));
+  if (rc != 0) return rc;
   const dim3 grid((a.t_out + kTT - 1) / kTT, a.batch);
-  conv_k3_f32_kernel<CO, S, STATS><<<grid, kF32Threads, 0, a.stream>>>(
+  kernel<<<grid, F32Tiling<CO>::kThreads, kSmem, a.stream>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w), static_cast<const float*>(a.bias), a.mu,
       a.inv, static_cast<float*>(a.y), a.part, a.t_in, a.t_out, a.c_in, a.act);
-  const int rc = static_cast<int>(cudaGetLastError());
+  rc = static_cast<int>(cudaGetLastError());
   return rc != 0 || !STATS ? rc : merge(a, CO, grid.x, kTT);
 }
 

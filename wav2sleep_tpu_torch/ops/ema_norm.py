@@ -7,8 +7,20 @@ group per modality, each with its own sampling rate) in ONE launch: a
 two-time-constant exponential moving average tracks each row's baseline and
 variance, residuals are clipped at ``outlier_threshold_sigma`` times the
 previous sigma, and sigma is floored at ``min_sigma``. The clip makes the
-recurrence non-associative, so each row is walked serially; see the note at
-the top of the CUDA source for what bounds it.
+recurrence non-associative, so each row is walked serially.
+
+The variance update is written without a square root: the TPU kernel's
+``alpha_v * clip(d, +-thr * sqrt(m))**2`` (``m = max(ss, min_sigma**2)``) is
+``min(alpha_v * d * d, max(c * ss, c * min_sigma**2))`` here, ``c = alpha_v *
+thr**2`` per row, equal in real numbers and within 1e-5 of it in f32 (bit
+for bit when ``thr**2`` is a power of two). That leaves four dependent f32
+operations a step on the kernel's serial chain; the kernel walks each row
+with one warp, the mean one chunk ahead of the variance, keeps the next
+chunks' loads in flight, and computes each output once. On an NVIDIA H100
+80GB HBM3 (700 W) one serving batch's 32 rows (8 ten-hour nights x 4
+modalities) take ~23 ms, from ~80 ms with the square root on the chain
+(``python -m wav2sleep_tpu_torch.bench_ema``, ``chip_smoke.py`` phase 5,
+PERF.md). The note at the top of the CUDA source has the design.
 
 The warm-up state (mean and floored variance of each row's first
 ``n_warm = max(1, min(tau_w * fs, T // 10))`` samples, ``tau_w`` the smaller
@@ -50,7 +62,7 @@ def build() -> ctypes.CDLL:
         path, BUILD_LOG = compile_library('ema_norm.cu')
         lib = ctypes.CDLL(str(path))
         lib.w2s_ema_normalize.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         lib.w2s_ema_normalize.restype = ctypes.c_int
         _lib = lib
@@ -76,14 +88,18 @@ def _warmup_state(x_NT, sampling_freq, tau_seconds, baseline_tau_seconds, min_si
     return mu0, var.clamp_min(min_sigma * min_sigma).clamp_min(eps)
 
 
-def _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, min_sigma, eps):
+def _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, outlier_threshold_sigma, min_sigma, eps):
     """Per group, the f32 [N_i] columns (mu0, ss0, alpha_b, 1 - alpha_b,
-    alpha_v, 1 - alpha_v) of its rows."""
+    alpha_v, 1 - alpha_v, c = alpha_v * thr**2, c * min_sigma**2) of its
+    rows: the state and the constants of the recurrence, the same tensors
+    for the kernel and the plain version."""
     per_row = []
     for x, fs in zip(xs, sampling_freqs):
         mu0, ss0 = _warmup_state(x, fs, tau_seconds, baseline_tau_seconds, min_sigma, eps)
         ab, av = _rates(fs, tau_seconds, baseline_tau_seconds)
-        per_row.append([mu0, ss0, *(torch.full_like(mu0, r) for r in (ab, 1.0 - ab, av, 1.0 - av))])
+        cols = [mu0, ss0, *(torch.full_like(mu0, r) for r in (ab, 1.0 - ab, av, 1.0 - av))]
+        c = cols[4] * (outlier_threshold_sigma * outlier_threshold_sigma)
+        per_row.append(cols + [c, c * (min_sigma * min_sigma)])
     return per_row
 
 
@@ -108,24 +124,23 @@ def ema_normalize_reference(
     eps: float = 1e-6,
 ) -> list[torch.Tensor]:
     """Plain PyTorch version of K3: the recurrence as a loop over time on
-    ``[N]`` vectors of per-row state and rates, in f32. Groups of one
-    length share the loop."""
+    ``[N]`` vectors of per-row state and rates, in f32, one operation at a
+    time in the kernel's order. Groups of one length share the loop."""
     _check_groups(xs, sampling_freqs)
     min_ss = min_sigma * min_sigma
-    per_row = _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, min_sigma, eps)
+    per_row = _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, outlier_threshold_sigma, min_sigma, eps)
     outs = [None] * len(xs)
     for T in sorted({x.shape[1] for x in xs}):
         idx = [i for i, x in enumerate(xs) if x.shape[1] == T]
         x = torch.cat([xs[i] for i in idx])
-        mu, ss, ab, omab, av, omav = (torch.cat([per_row[i][k] for i in idx]) for k in range(6))
+        mu, ss, ab, omab, av, omav, c, c_floor = (torch.cat([per_row[i][k] for i in idx]) for k in range(8))
         cols = [(x[:, 0] - mu) * torch.rsqrt(ss.clamp_min(min_ss))] if T else []
         for t in range(1, T):
             xt = x[:, t]
             mu = ab * xt + omab * mu
-            limit = outlier_threshold_sigma * torch.sqrt(ss.clamp_min(min_ss))
-            r = torch.minimum(torch.maximum(xt - mu, -limit), limit)
-            ss = av * r * r + omav * ss
-            cols.append((xt - mu) * torch.rsqrt(ss.clamp_min(min_ss)))
+            d = xt - mu
+            ss = torch.minimum(av * (d * d), torch.maximum(c * ss, c_floor)) + omav * ss
+            cols.append(d * torch.rsqrt(ss.clamp_min(min_ss)))
         out = torch.stack(cols, dim=1) if T else torch.empty_like(x)
         for i, part in zip(idx, out.split([xs[i].shape[0] for i in idx])):
             outs[i] = part
@@ -156,8 +171,8 @@ def ema_normalize(
     global LAUNCHES
     xs = [x.contiguous() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
-    per_row = _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, min_sigma, eps)
-    params_t = torch.stack([torch.cat([p[k] for p in per_row]) for k in range(6)], dim=1).contiguous()
+    per_row = _row_state(xs, sampling_freqs, tau_seconds, baseline_tau_seconds, outlier_threshold_sigma, min_sigma, eps)
+    params_t = torch.stack([torch.cat([p[k] for p in per_row]) for k in range(8)], dim=1).contiguous()
     rows = [
         [x.data_ptr() + 4 * i * x.shape[1], out.data_ptr() + 4 * i * x.shape[1], x.shape[1]]
         for x, out in zip(xs, outs)
@@ -167,8 +182,8 @@ def ema_normalize(
     lib = build()
     with torch.cuda.device(dev):
         rc = lib.w2s_ema_normalize(
-            rows_t.data_ptr(), params_t.data_ptr(), len(rows), float(outlier_threshold_sigma),
-            float(min_sigma * min_sigma), torch.cuda.current_stream(dev).cuda_stream,
+            rows_t.data_ptr(), params_t.data_ptr(), len(rows), float(min_sigma * min_sigma),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f'ema_normalize launch failed: error {rc} over {len(rows)} rows')
