@@ -53,6 +53,18 @@ Phases (any failure raises, so the script exits non-zero):
    in the loop: 2 passes, then 1 pass in the kernel-statistics configuration,
    then 1 untimed pass with ``normalize='zscore'``. Every hypnogram has 1,200
    epochs in 0..3; the launch counts of K1, K2 and K3 are asserted.
+9. Serve CLI: a flagship checkpoint folder written with the port's
+   ``save_checkpoint_folder`` (the seeded weights of phase 8, full width),
+   loaded by ``load_model`` in bf16 and served over the q16, q4 and raw
+   transports (``StreamingPipelineQ16`` / ``Q4`` / ``Raw``, batch 8) on
+   phase 8's EDF nights, host extraction in the loop: a warm-up, then 2
+   timed passes each, with 80 K1 launches per batch and the native library
+   in use asserted; each transport's hypnograms against phase 8's z-score
+   pass. Then one run of ``wav2sleep_tpu_torch.serve.main`` with the
+   default transport (q16) and device (the card): 16 CSV files of 1,200
+   rows whose ``Pred`` column is the q16 pass's hypnograms; then one run
+   with each other ``--transport`` and one with ``--precision float32``,
+   each giving 16 valid files.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
@@ -636,64 +648,232 @@ def write_nights(folder: str, n_nights: int, hours: float, seed: int, absent: di
     return fps
 
 
-def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card):
+def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps):
     """The f32 transport with causal normalization, host EDF decode in the
     loop; returns the launch counts of its main path and of the
-    kernel-statistics configuration."""
+    kernel-statistics configuration, and the hypnograms of the z-score
+    pass."""
     n_epochs = int(round(HOURS * 120))
-    build_dir = os.path.join(ROOT, 'build')
-    os.makedirs(build_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as folder:
-        t0 = time.time()
-        fps = write_nights(folder, NIGHTS, HOURS, seed=10, absent={5: ('Thor',)})
-        log(f'serve f32: wrote {NIGHTS} EDF nights of {HOURS:g} h ({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) '
-            f'with write_edf in {time.time() - t0:.1f} s (set-up)')
-        model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
-        pipe = pipeline.StreamingPipeline(
-            model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
-            normalize='causal', device='cuda',
-        )
-        if pipe.decoder._lib is None:
-            raise AssertionError('serve f32: the native host library is not in use')
-        pipe.warmup()
+    model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
+    pipe = pipeline.StreamingPipeline(
+        model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
+        normalize='causal', device='cuda',
+    )
+    if pipe.decoder._lib is None:
+        raise AssertionError('serve f32: the native host library is not in use')
+    pipe.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    passes, batches = 2, -(-NIGHTS // BATCH)
+    pipe.fill_seconds = 0.0
+    zero_counts(k1, k3)
+    walls, out = timed_passes(torch, pipe, fps, passes)
+    main = counts(k1, k3)
+    check_hypnograms(out, fps, n_epochs, 'serve f32')
+    if main != {'K1': 80 * passes * batches, 'K2': 0, 'K3': passes * batches}:
+        raise AssertionError(f'serve f32: launches {main}')
+    total = sum(walls)
+    log(f'serve f32 causal bf16 batch {BATCH}: {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
+        f'{", ".join(f"{w:.3f}" for w in walls)} s: {passes * NIGHTS} nights in {total:.3f} s, '
+        f'{3600 * passes * NIGHTS / total:.0f} recordings/hour on {card}; producer decoding '
+        f'{pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the wall); launches {main}; '
+        f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+
+    with kernel_stats(bd, True):
+        pipe.fill_seconds = 0.0
+        zero_counts(k1, k3)
+        walls_s, out_s = timed_passes(torch, pipe, fps, 1)
+        stats = counts(k1, k3)
+    check_hypnograms(out_s, fps, n_epochs, 'serve f32, kernel statistics')
+    if stats != {'K1': 0, 'K2': 80 * batches, 'K3': batches}:
+        raise AssertionError(f'serve f32, kernel statistics: launches {stats}')
+    agree = np.mean(np.concatenate([a == b for (_, a), (_, b) in zip(out, out_s)]))
+    log(f'serve f32 causal, kernel statistics on: 1 pass in {walls_s[0]:.3f} s '
+        f'({3600 * NIGHTS / walls_s[0]:.0f} recordings/hour); launches {stats}; epochs agreeing with '
+        f'the statistics-off pass {agree:.5f}')
+
+    zpipe = pipeline.StreamingPipeline(
+        model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
+        normalize='zscore', device='cuda',
+    )
+    zero_counts(k1, k3)
+    out_z = list(zpipe.run(fps))
+    check_hypnograms(out_z, fps, n_epochs, 'serve f32 zscore')
+    log(f'serve f32 zscore: 1 untimed pass, {len(out_z)} valid hypnograms; launches {counts(k1, k3)}')
+    return main, stats, out_z
+
+
+def q4_witness(torch, pipeline, fps, card):
+    """Where q4's disagreement comes from, on one batch of nights: the card's
+    f32 decode (the model's z-scored input, captured) against a host f64
+    decode of the same codes, and that f64 decode against the lossless q16
+    codes' f64 z-score. A card error far below the codec's puts the blame on
+    the codec; q16's card decode against its f64 one is the floor."""
+    n_grid = {c: grid_length(c, HOURS) for c in SIGNALS}
+    batch = fps[:BATCH]
+    e16 = pipeline.Q16NightExtractor(list(SIGNALS), HOURS)
+    e4 = pipeline.Q4NightExtractor(list(SIGNALS), n_grid, HOURS)
+    q16 = {c: np.zeros((len(batch), n_grid[c]), np.int16) for c in SIGNALS}
+    m16 = {c: np.zeros(len(batch), pipeline.Q16_META_DTYPE) for c in SIGNALS}
+    q4 = {c: np.zeros((len(batch), pipeline.q4_row_len(n_grid[c])), np.uint8) for c in SIGNALS}
+    m4 = {c: np.zeros(len(batch), pipeline.Q8_META_DTYPE) for c in SIGNALS}
+    for i, fp in enumerate(batch):
+        e16.extract_into(fp, q16, m16, i)
+        e4.extract_into(fp, q4, m4, i)
+
+    class Inputs(torch.nn.Module):
+        """Keeps the model input; its logits are zeros."""
+
+        def forward(self, x):
+            self.x = {c: v.float().cpu().numpy() for c, v in x.items()}
+            v = next(iter(x.values()))
+            return v.new_zeros((v.shape[0], int(round(HOURS * 120)), 4))
+
+    def card_inputs(fwd, rows, meta):
+        dev = lambda d: {c: torch.from_numpy(np.ascontiguousarray(v)).cuda() for c, v in d.items()}  # noqa: E731
+        fwd(dev(rows), *(dev({c: meta[c][f] for c in SIGNALS}) for f in meta[SIGNALS[0]].dtype.names))
+
+    def zscore64(v, m):
+        iot = np.arange(v.shape[1])[None, :]
+        v = np.where(iot < m['n_valid'][:, None], v, 0.0)
+        valid = iot < m['n_pad'][:, None]
+        cnt = valid.sum(1, keepdims=True)
+        mu = v.sum(1, keepdims=True) / np.maximum(cnt, 1)
+        std = np.sqrt((np.where(valid, v - mu, 0.0) ** 2).sum(1, keepdims=True) / np.maximum(cnt - 1, 1))
+        return np.where(valid, (v - mu) / np.maximum(std, 1e-6), np.nan)
+
+    cap = Inputs()
+    card_inputs(pipeline.make_streaming_forward_q4(cap, n_grid, 'float32', output='logits'), q4, m4)
+    z4_card = cap.x
+    card_inputs(pipeline.make_streaming_forward_q16(cap, 'float32', output='logits'), q16, m16)
+    z16_card = cap.x
+    for c in SIGNALS:
+        n, r = n_grid[c], q4[c]
+        mp, nbk = (n + 1) // 2, -(-n // pipeline.Q4_BLOCK)
+        p = r[:, :mp].astype(np.int64)
+        nib = np.stack([p & 0xF, p >> 4], axis=-1).reshape(len(batch), -1)[:, :n]
+        step = np.repeat(pipeline._EXP8_SCALE[r[:, mp : mp + nbk]], pipeline.Q4_BLOCK, axis=1)[:, :n]
+        dig = np.cumsum((1 - 2 * (nib >> 3)) * (nib & 7) * step, axis=1)
+        z4 = zscore64(dig * m4[c]['a'][:, None].astype(np.float64) + m4[c]['b'][:, None], m4[c])
+        z16 = zscore64(q16[c] * m16[c]['a'][:, None].astype(np.float64) + m16[c]['b'][:, None], m16[c])
+        keep = m4[c]['present'][:, None] & np.isfinite(z4)
+        if not keep.any():
+            continue
+        parts = {'q4 card f32 vs host f64, same codes': z4_card[c] - z4, 'q4 host f64 vs q16 (the codec)': z4 - z16,
+                 'q16 card f32 vs host f64': z16_card[c] - z16}
+        log(f'q4 witness {c} ({keep.sum()} samples of {int(m4[c]["present"].sum())} nights, z units): ' + '; '.join(
+            f'{k} rms {np.sqrt(np.mean(d[keep] ** 2)):.3e} max {np.abs(d[keep]).max():.3e}' for k, d in parts.items())
+            + f' on {card}')
+
+
+def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
+    """The serving CLI's path on the EDF nights ``fps``: a flagship
+    checkpoint folder, ``load_model`` in bf16, the q16, q4 and raw
+    pipelines timed, then the CLI itself; returns each transport's launch
+    counts."""
+    from wav2sleep_tpu_torch import api, checkpoint, serve
+    from wav2sleep_tpu_torch.instantiate import target_config
+
+    n_epochs = int(round(HOURS * 120))
+    ckpt = os.path.join(work, 'checkpoint')
+    cfg = wav2sleep.flagship_config()
+    t0 = time.time()
+    checkpoint.save_checkpoint_folder(
+        ckpt, target_config(**cfg), wav2sleep.build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    )
+    model = api.load_model(ckpt, precision='bfloat16')
+    if {p.dtype for p in model.parameters()} != {torch.bfloat16} or next(model.parameters()).device.type != 'cuda':
+        raise AssertionError('serve cli: load_model did not give bf16 parameters on the card')
+    log(f'serve cli: checkpoint folder written and loaded (bf16, on the card) in {time.time() - t0:.1f} s (set-up)')
+    zscore = dict(out_z)
+    passes, batches = 2, -(-NIGHTS // BATCH)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).to(torch.bfloat16)
+          for c in SIGNALS}
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: model(xb), reps=3, warmup=1)
+    del xb
+    launches, hyps = {}, {}
+    for name, cls in (('q16', pipeline.StreamingPipelineQ16), ('q4', pipeline.StreamingPipelineQ4),
+                      ('raw', pipeline.StreamingPipelineRaw)):
+        pipe = cls(model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16')
+        if name == 'raw':
+            pipe.warmup(fps[0])  # the raw rows ship the EDF's samples: no native host kernel
+        else:
+            if pipe.extractor._lib is None:
+                raise AssertionError(f'serve {name}: the native host library is not in use')
+            pipe.warmup()
         torch.cuda.reset_peak_memory_stats()
-        passes, batches = 2, -(-NIGHTS // BATCH)
         pipe.fill_seconds = 0.0
         zero_counts(k1, k3)
         walls, out = timed_passes(torch, pipe, fps, passes)
-        main = counts(k1, k3)
-        check_hypnograms(out, fps, n_epochs, 'serve f32')
-        if main != {'K1': 80 * passes * batches, 'K2': 0, 'K3': passes * batches}:
-            raise AssertionError(f'serve f32: launches {main}')
+        launches[name] = counts(k1, k3)
+        check_hypnograms(out, fps, n_epochs, f'serve {name}')
+        if launches[name] != {'K1': 80 * passes * batches, 'K2': 0, 'K3': 0}:
+            raise AssertionError(f'serve {name}: launches {launches[name]}, expected {80 * passes * batches} K1')
+        agree = np.mean(np.concatenate([hyp == zscore[fp] for fp, hyp in out]))
         total = sum(walls)
-        log(f'serve f32 causal bf16 batch {BATCH}: {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
+        log(f'serve {name} bf16 batch {BATCH} (load_model): {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
             f'{", ".join(f"{w:.3f}" for w in walls)} s: {passes * NIGHTS} nights in {total:.3f} s, '
-            f'{3600 * passes * NIGHTS / total:.0f} recordings/hour on {card}; producer decoding '
-            f'{pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the wall); launches {main}; '
-            f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+            f'{3600 * passes * NIGHTS / total:.0f} recordings/hour on {card}; producer filling '
+            f'{pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the wall); launches '
+            f'{launches[name]}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+            f'epochs agreeing with the f32 z-score pass {agree:.5f}')
+        # One batch from the slot's pinned rows (the last batch served):
+        # H2D copy, the transport's decode and the forward.
+        batch_ms = cuda_ms(lambda: pipe._launch(pipe._slots[0]), reps=3, warmup=1)
+        log(f'serve {name}: one batch from pinned rows (copy, decode, forward) {batch_ms:.2f} ms, the forward '
+            f'alone on bf16 rows {forward_ms:.2f} ms ({100 * (batch_ms - forward_ms) / batch_ms:.1f}% copy and '
+            f'decode) on {card}')
+        hyps[name] = dict(out)
+        del pipe
 
-        with kernel_stats(bd, True):
-            pipe.fill_seconds = 0.0
-            zero_counts(k1, k3)
-            walls_s, out_s = timed_passes(torch, pipe, fps, 1)
-            stats = counts(k1, k3)
-        check_hypnograms(out_s, fps, n_epochs, 'serve f32, kernel statistics')
-        if stats != {'K1': 0, 'K2': 80 * batches, 'K3': batches}:
-            raise AssertionError(f'serve f32, kernel statistics: launches {stats}')
-        agree = np.mean(np.concatenate([a == b for (_, a), (_, b) in zip(out, out_s)]))
-        log(f'serve f32 causal, kernel statistics on: 1 pass in {walls_s[0]:.3f} s '
-            f'({3600 * NIGHTS / walls_s[0]:.0f} recordings/hour); launches {stats}; epochs agreeing with '
-            f'the statistics-off pass {agree:.5f}')
+    out_dir = os.path.join(work, 'preds')
+    t0 = time.time()
+    serve.main(['--input-folder', os.path.dirname(fps[0]), '--output-folder', out_dir, '--model-folder', ckpt,
+                '--batch-size', str(BATCH), '--max-length-hours', str(HOURS)])
+    wall = time.time() - t0
+    for fp in fps:
+        csv = os.path.join(out_dir, os.path.splitext(os.path.basename(fp))[0] + '.preds.csv')
+        with open(csv) as f:
+            lines = f.read().splitlines()
+        if lines[0] != 'Timestamp,Pred' or len(lines) != 1 + n_epochs:
+            raise AssertionError(f'serve cli: {csv} has {len(lines) - 1} rows, expected {n_epochs}')
+        pred = np.array([int(line.rsplit(',', 1)[1]) for line in lines[1:]])
+        if not np.array_equal(pred, hyps['q16'][fp]):
+            raise AssertionError(f'serve cli: {csv} differs from the q16 pass\'s hypnogram')
+    log(f'serve cli: python -m wav2sleep_tpu_torch.serve (q16, bf16, the card) wrote {len(fps)} CSV files of '
+        f'{n_epochs} rows equal to the q16 pass\'s hypnograms in {wall:.1f} s (model load and one pass) on {card}')
 
-        zpipe = pipeline.StreamingPipeline(
-            model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
-            normalize='zscore', device='cuda',
-        )
-        zero_counts(k1, k3)
-        out_z = list(zpipe.run(fps))
-        check_hypnograms(out_z, fps, n_epochs, 'serve f32 zscore')
-        log(f'serve f32 zscore: 1 untimed pass, {len(out_z)} valid hypnograms; launches {counts(k1, k3)}')
-    return main, stats
+    # Every other --transport, and q16 and q4 in float32 (TF32 off in their
+    # forwards): q4 against q16 in f32 is the codec's agreement without bf16.
+    preds = {}
+    for transport, precision in (('q8', 'bfloat16'), ('q4', 'bfloat16'), ('raw', 'bfloat16'), ('f32', 'bfloat16'),
+                                 ('q16', 'float32'), ('q4', 'float32')):
+        out = os.path.join(work, f'preds_{transport}_{precision}')
+        t0 = time.time()
+        serve.main(['--input-folder', os.path.dirname(fps[0]), '--output-folder', out, '--model-folder', ckpt,
+                    '--transport', transport, '--precision', precision, '--batch-size', str(BATCH),
+                    '--max-length-hours', str(HOURS)])
+        wall = time.time() - t0
+        same = total = 0
+        for fp in fps:
+            csv = os.path.splitext(os.path.basename(fp))[0] + '.preds.csv'
+            with open(os.path.join(out, csv)) as f:
+                lines = f.read().splitlines()
+            pred = np.array([int(line.rsplit(',', 1)[1]) for line in lines[1:]])
+            if lines[0] != 'Timestamp,Pred' or pred.shape != (n_epochs,) or pred.min() < 0 or pred.max() > 3:
+                raise AssertionError(f'serve cli --transport {transport} --precision {precision}: bad {csv}')
+            same += int((pred == hyps['q16'][fp]).sum())
+            total += n_epochs
+            preds[transport, precision, fp] = pred
+        log(f'serve cli --transport {transport} --precision {precision}: {len(fps)} CSV files of {n_epochs} valid '
+            f'rows in {wall:.1f} s; epochs equal to the default run {same / total:.5f}')
+    for precision in ('bfloat16', 'float32'):
+        agree = np.mean([preds['q4', precision, fp] == (hyps['q16'][fp] if precision == 'bfloat16' else
+                                                          preds['q16', precision, fp]) for fp in fps])
+        log(f'serve cli: q4 against q16, both --precision {precision}: epochs equal {agree:.5f}')
+    q4_witness(torch, pipeline, fps, card)
+    return launches
 
 
 def main() -> int:
@@ -724,7 +904,15 @@ def main() -> int:
         k3_err, k3_line, _ = phase_k3(torch, k3)
     phase_model(torch, k1, k3, bd, layers, wav2sleep)
     phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card)
-    main_counts, stats_counts = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card)
+    build_dir = os.path.join(ROOT, 'build')
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as nights, tempfile.TemporaryDirectory(dir=build_dir) as work:
+        t0 = time.time()
+        fps = write_nights(nights, NIGHTS, HOURS, seed=10, absent={5: ('Thor',)})
+        log(f'serve: wrote {NIGHTS} EDF nights of {HOURS:g} h ({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) '
+            f'with write_edf in {time.time() - t0:.1f} s (set-up)')
+        main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
+        phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [

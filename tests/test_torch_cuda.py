@@ -7,6 +7,8 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -310,3 +312,118 @@ def test_k3_refuses_what_it_does_not_take(card):
         ema_norm.ema_normalize([torch.zeros(2, 10, device=card), torch.zeros(2, 10)], [34.0, 34.0])
     with pytest.raises(ValueError, match='float32'):
         ema_norm.ema_normalize([torch.zeros(2, 10, device=card, dtype=torch.bfloat16)], [34.0])
+
+
+@pytest.fixture
+def card_default_flags():
+    """The card with torch's default TF32 flags (cuDNN convs in TF32,
+    matmuls in f32), whatever earlier cases set; restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card')
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield torch.device('cuda')
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _q16_logits(folder, device, hours, rows, meta):
+    """f32 logits of the q16 entry point (load_model + the pipeline's launch
+    of one batch) for the given codes."""
+    from wav2sleep_tpu_torch import api, pipeline
+
+    model = api.load_model(folder, precision='float32', device=device)
+    pipe = pipeline.StreamingPipelineQ16(model, list(rows), batch_size=2, max_length_hours=hours,
+                                         precision='float32', device=device)
+    pipe.forward = pipeline.make_streaming_forward_q16(pipe.model, 'float32', output='logits')
+    slot = pipe._slots[0]
+    for c in rows:
+        slot.rows_np[c][:] = rows[c]
+        slot.meta[c][:] = meta[c]
+    return pipe._launch(slot).cpu()
+
+
+def test_f32_serving_is_f32_under_torchs_default_flags(card_default_flags, tmp_path, monkeypatch):
+    """The flagship's f32 q16 logits on the card, through load_model and the
+    pipeline under torch's default flags, are within 5e-4 (atol and rtol)
+    of the plain CPU forward on the same codes. Also prints the max |d|
+    with the forward's TF32 switch taken out, the fault it repairs."""
+    from wav2sleep_tpu_torch import checkpoint, pipeline
+    from wav2sleep_tpu_torch.instantiate import target_config
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+
+    cfg = flagship_config()
+    folder = str(tmp_path / 'ckpt')
+    checkpoint.save_checkpoint_folder(folder, target_config(**cfg), build_wav2sleep(**cfg).state_dict())
+    hours = 1.0
+    rng = np.random.default_rng(12)
+    rows, meta = {}, {}
+    for c in cfg['signal_map']:
+        n = pipeline.grid_length(c, hours)
+        rows[c] = (np.sin(np.arange(n) / rng.uniform(3, 40)) * 3000 + rng.normal(size=(2, n)) * 300).astype(np.int16)
+        m = np.zeros(2, pipeline.Q16_META_DTYPE)
+        m['a'], m['b'], m['n_valid'], m['n_pad'], m['present'] = 1e-3, 0.1, n, n, True
+        meta[c] = m
+    meta['PPG']['present'][1] = False  # an absent modality
+    want = _q16_logits(folder, 'cpu', hours, rows, meta)
+    got = _q16_logits(folder, card_default_flags, hours, rows, meta)
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, '_full_f32', contextlib.nullcontext)
+        unrepaired = _q16_logits(folder, card_default_flags, hours, rows, meta)
+    assert torch.backends.cudnn.allow_tf32  # the forward restored torch's default
+    print(f'f32 q16 logits, card vs CPU under torch\'s default flags: max|d| {float((got - want).abs().max()):.3e} '
+          f'(without the forward\'s TF32 switch: {float((unrepaired - want).abs().max()):.3e}) on '
+          f'{torch.cuda.get_device_name(0)}')
+    assert got.shape == (2, 120, 4) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize('kind', ['q16', 'q4', 'raw'])
+def test_transport_forwards_match_the_cpu(card, kind):
+    """Each new transport's device half (affine, q4's nibble unpack and
+    cumsum, raw's gather at the anchors) on the card against the same
+    forward on the CPU, f32 logits within 5e-4, with a narrow model."""
+    from wav2sleep_tpu_torch import pipeline
+    from wav2sleep_tpu_torch.models.wav2sleep import flagship_model
+    from wav2sleep_tpu_torch.settings import COLS_TO_SAMPLES_PER_EPOCH
+
+    hours, B = 0.25, 2
+    rng = np.random.default_rng(13)
+    signals = ('ECG', 'THX')
+    n_grid = {c: pipeline.grid_length(c, hours) for c in signals}
+    if kind == 'q4':
+        rows = {c: rng.integers(0, 256, size=(B, pipeline.q4_row_len(n)), dtype=np.uint8) for c, n in n_grid.items()}
+        for c, n in n_grid.items():  # scale exponents: steps of 2**(e/16), e < 96
+            rows[c][:, (n + 1) // 2:] %= 96
+        names = pipeline.Q8_META_DTYPE.names
+    elif kind == 'raw':
+        fs = {'ECG': 125.0, 'THX': 10.0}
+        rows = {c: (rng.normal(size=(B, 131072)) * 2000).astype(np.int16) for c in signals}
+    else:
+        rows = {c: (rng.normal(size=(B, n)) * 2000).astype(np.int16) for c, n in n_grid.items()}
+        names = pipeline.Q16_META_DTYPE.names
+
+    def logits(device):
+        model = flagship_model(max_channels=32, feature_dim=32, device=device, generator=torch.Generator().manual_seed(4))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        vec = lambda v, dtype=np.float32: {c: t(np.full(B, v, dtype)) for c in signals}  # noqa: E731
+        n_pad = {c: t(np.array([n_grid[c], n_grid[c] // 2], np.int32)) for c in signals}
+        present = {c: t(np.array([True, c != 'THX'])) for c in signals}
+        q = {c: t(r) for c, r in rows.items()}
+        if kind == 'raw':
+            anchors = [pipeline.compute_resample_anchors(fs[c], 30.0 / COLS_TO_SAMPLES_PER_EPOCH[c], n_grid[c])
+                       for c in signals]
+            base_int = {c: t(np.stack([a[0]] * B)) for c, a in zip(signals, anchors)}
+            base_frac = {c: t(np.stack([a[1]] * B)) for c, a in zip(signals, anchors)}
+            ratio = {c: t(np.full(B, a[2], np.float32)) for c, a in zip(signals, anchors)}
+            n = {c: t(np.array([int(fs[c] * hours * 3600), 50_000], np.int32)) for c in signals}
+            fwd = pipeline.make_streaming_forward_raw(model, n_grid, 'float32', output='logits')
+            return fwd(q, vec(1e-3), vec(0.2), base_int, base_frac, ratio, n, n_pad, present).cpu()
+        fields = {'a': vec(1e-3), 'b': vec(0.2), 'vmax': vec(2000.0), 'n_valid': vec(n_grid['THX'], np.int32),
+                  'n_pad': n_pad, 'present': present}
+        make = (pipeline.make_streaming_forward_q16 if kind == 'q16' else
+                lambda m, p, output: pipeline.make_streaming_forward_q4(m, n_grid, p, output))
+        return make(model, 'float32', output='logits')(q, *(fields[f] for f in names)).cpu()
+
+    want, got = logits('cpu'), logits(card)
+    assert got.shape == (B, 30, 4) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)

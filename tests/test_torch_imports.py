@@ -1,9 +1,10 @@
 """The torch port imports nothing of the JAX package ``wav2sleep_tpu``, and
 neither JAX, flax, optax, pandas, pyarrow nor yaml: the port and
 chip_smoke.py import, and drive their host paths (the native library, the
-EDF reader and writer, both extractors, weight conversion), with all of
-those unavailable. No file of the port names them in an import, at module
-level or inside a function."""
+EDF reader and writer, every extractor, weight conversion, a checkpoint
+folder and the serving CLI on the CPU), with all of those unavailable. No
+file of the port names them in an import, at module level or inside a
+function."""
 
 import os
 import re
@@ -36,7 +37,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 chip_smoke.SyntheticQ8Nights(1, 0.05)  # builds and encodes its nights
-from wav2sleep_tpu_torch import convert, pipeline
+from wav2sleep_tpu_torch import api, checkpoint, convert, instantiate, pipeline, serve
+from wav2sleep_tpu_torch.models import wav2sleep
 from wav2sleep_tpu_torch.data.edf import write_edf
 convert.from_jax_variables({{'params': {{'classifier': {{'kernel': np.zeros((2, 3), np.float32)}}}}}})
 with tempfile.TemporaryDirectory() as d:
@@ -50,6 +52,26 @@ with tempfile.TemporaryDirectory() as d:
     q = {{c: np.zeros((1, pipeline.grid_length(c, 0.01)), np.int8) for c in signals}}
     meta = {{c: np.zeros(1, pipeline.Q8_META_DTYPE) for c in signals}}
     assert pipeline.Q8NightExtractor(signals, 0.01).extract_into(fp, q, meta, 0) == 1
+    n_grid = {{c: pipeline.grid_length(c, 0.01) for c in signals}}
+    q16 = {{c: np.zeros((1, n), np.int16) for c, n in n_grid.items()}}
+    assert pipeline.Q16NightExtractor(signals, 0.01).extract_into(
+        fp, q16, {{c: np.zeros(1, pipeline.Q16_META_DTYPE) for c in signals}}, 0) == 1
+    q4 = {{c: np.zeros((1, pipeline.q4_row_len(n)), np.uint8) for c, n in n_grid.items()}}
+    assert pipeline.Q4NightExtractor(signals, n_grid, 0.01).extract_into(fp, q4, meta, 0) == 1
+    raw_ext = pipeline.RawNightExtractor(signals)
+    raw = {{c: np.zeros((1, n), np.int16) for c, n in raw_ext.probe_bucket(fp).items()}}
+    assert raw_ext.extract_into(fp, raw, {{c: np.zeros(1, pipeline.META_DTYPE) for c in signals}}, 0) == 1
+    # A checkpoint folder round trip (the YAML subset, state_dict.pth) and
+    # the serving CLI on the CPU.
+    cfg = instantiate.target_config(**wav2sleep.flagship_config(feature_dim=16, max_channels=16))
+    cfg['signal_encoders']['signal_map'] = {{'ECG': 'ECG', 'THX': 'THX'}}
+    model = instantiate.build_model(cfg)
+    checkpoint.save_checkpoint_folder(d + '/ckpt', cfg, model.state_dict())
+    assert api.load_model(d + '/ckpt', device='cpu').valid_signals == signals
+    serve.main(['--input-folder', d, '--output-folder', d + '/out', '--model-folder', d + '/ckpt',
+                '--device', 'cpu', '--max-length-hours', str(1 / 120), '--batch-size', '1'])
+    with open(d + '/out/n.preds.csv') as f:
+        assert f.read().startswith('Timestamp,Pred\\n2000-01-01 22:00:30,')
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('IMPORTED', len(mods), 'LEAKED', leaked)
 '''
@@ -63,7 +85,7 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 17, proc.stdout  # every module of the package was reached
+    assert n >= 21, proc.stdout  # every module of the package was reached
 
 
 def _port_files():

@@ -28,19 +28,23 @@ S = 6  # epochs per night
 HOURS = S / 120
 
 
+# A small ECG+THX model (build_wav2sleep's arguments); the encoders' k3
+# convs (16-32 channels) go through conv_k3 in the port.
+SMALL_CFG = dict(
+    num_classes=4,
+    signal_map={'ECG': 'ECG', 'THX': 'THX'},
+    encoders=dict(feature_dim=16, activation='gelu', norm='instance', chunk_causal=False,
+                  initial_channels=16, max_channels=32),
+    epoch_mixer=dict(feature_dim=16, layers=1, dim_ff=32, nhead=4, dropout=0.0),
+    sequence_mixer=dict(feature_dim=16, num_layers=1, kernel_size=3, num_dilations=2,
+                        norm='layer', dropout=0.0),
+)
+
+
 @pytest.fixture(scope='module')
 def model_pair():
-    """A small ECG+THX model in both stacks, on the same weights; the
-    encoders' k3 convs (16-32 channels) go through conv_k3 in the port."""
-    cfg = dict(
-        num_classes=4,
-        signal_map={'ECG': 'ECG', 'THX': 'THX'},
-        encoders=dict(feature_dim=16, activation='gelu', norm='instance', chunk_causal=False,
-                      initial_channels=16, max_channels=32),
-        epoch_mixer=dict(feature_dim=16, layers=1, dim_ff=32, nhead=4, dropout=0.0),
-        sequence_mixer=dict(feature_dim=16, num_layers=1, kernel_size=3, num_dilations=2,
-                            norm='layer', dropout=0.0),
-    )
+    """``SMALL_CFG`` in both stacks, on the same weights."""
+    cfg = SMALL_CFG
     jmodel = jm.Wav2Sleep(
         signal_encoders=jm.SignalEncoders(signal_map=jm.as_signal_map(cfg['signal_map']), **cfg['encoders']),
         epoch_mixer=jm.MultiModalAttentionEmbedder(**cfg['epoch_mixer']),
@@ -350,16 +354,30 @@ def test_f32_pipeline_matches_jax(model_pair, tmp_path, normalize):
         assert got[fp].min() >= 0 and got[fp].max() < 4
 
 
-def test_entry_points_run_on_the_card_unless_told(model_pair, monkeypatch):
-    """With no device given, the pipelines and flagship_model take the card,
-    and raise where there is none rather than run on the CPU."""
+def test_entry_points_run_on_the_card_unless_told(model_pair, monkeypatch, tmp_path):
+    """With no device given, the pipelines, flagship_model, load_model and
+    the serving CLI take the card, and raise where there is none rather
+    than run on the CPU."""
+    from wav2sleep_tpu_torch import api, checkpoint, serve
+    from wav2sleep_tpu_torch.instantiate import target_config
+
     _, _, tmodel = model_pair
+    ckpt = str(tmp_path / 'ckpt')
+    checkpoint.save_checkpoint_folder(ckpt, target_config(**SMALL_CFG), tmodel.state_dict())
+    _write_nights(tmp_path)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    pipelines = (tpipe.StreamingPipelineQ8, tpipe.StreamingPipeline, tpipe.StreamingPipelineQ16,
+                 tpipe.StreamingPipelineQ4, tpipe.StreamingPipelineRaw)
     for build in (
-        lambda: tpipe.StreamingPipelineQ8(tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS),
-        lambda: tpipe.StreamingPipeline(tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS),
+        *(lambda cls=cls: cls(tmodel, list(SIGNALS), batch_size=2, max_length_hours=HOURS) for cls in pipelines),
         lambda: flagship_model(max_channels=16),
+        lambda: api.load_model(ckpt),
+        lambda: serve.main(['--input-folder', str(tmp_path), '--output-folder', str(tmp_path / 'out'),
+                            '--model-folder', ckpt]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-    assert tpipe.StreamingPipeline(tmodel, list(SIGNALS), 2, HOURS, device='cpu').device.type == 'cpu'
+    assert not (tmp_path / 'out').exists()
+    for cls in pipelines:
+        assert cls(tmodel, list(SIGNALS), 2, HOURS, device='cpu').device.type == 'cpu'
+    assert next(api.load_model(ckpt, device='cpu').parameters()).device.type == 'cpu'

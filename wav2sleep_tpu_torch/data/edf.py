@@ -5,8 +5,8 @@ serving extractors use: a fixed-layout header parse (256-byte file header,
 256 bytes per signal header) with the same salvage of malformed headers, a
 memory-mapped int16 record matrix (``EdfFile``), channel-alias matching with
 the BROKEN-unit skip, and the per-channel normalization affine (voltages to
-mV, arbitrary units onto [-1, 1]). ``write_edf`` writes test and synthetic
-nights.
+mV, arbitrary units onto [-1, 1]). ``get_edf_start`` reads the start
+time; ``write_edf`` writes test and synthetic nights.
 """
 
 from __future__ import annotations
@@ -406,6 +406,11 @@ def units_map_first(header) -> dict[str, str]:
     for c in header.channels:
         out.setdefault(c.label, c.unit)
     return out
+
+
+def get_edf_start(filepath: str) -> datetime.datetime:
+    """The recording's start date and time, from its header."""
+    return read_edf_header(filepath).start
 
 
 def write_edf(

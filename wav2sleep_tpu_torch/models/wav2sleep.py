@@ -233,6 +233,11 @@ class Wav2Sleep(nn.Module):
         self.sequence_mixer = sequence_mixer
         self.classifier = nn.Linear(epoch_mixer.feature_dim, num_classes)
 
+    @property
+    def valid_signals(self) -> list[str]:
+        """The signals the model takes, in its config's order."""
+        return list(self.signal_encoders.signal_map)
+
     def forward(
         self, x: dict[str, torch.Tensor], present: dict[str, torch.Tensor] | None = None
     ) -> torch.Tensor:

@@ -103,6 +103,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     f32 = npc.ndpointer(dtype=np.float32, flags='C_CONTIGUOUS')
     i16 = npc.ndpointer(dtype=np.int16, flags='C_CONTIGUOUS')
     i8 = npc.ndpointer(dtype=np.int8, flags='C_CONTIGUOUS')
+    u8 = npc.ndpointer(dtype=np.uint8, flags='C_CONTIGUOUS')
     d, i64 = ctypes.c_double, ctypes.c_int64
 
     lib.w2s_ema_normalize_f32.argtypes = [f32, i64, d, d, d, d, d, d, d, f32, ctypes.c_void_p]
@@ -111,3 +112,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.w2s_decode_resample.restype = None
     lib.w2s_resample_q8.argtypes = [i16, i64, i64, i64, i64, d, d, i64, i8, ctypes.POINTER(d)]
     lib.w2s_resample_q8.restype = i64
+    lib.w2s_resample_q16.argtypes = [i16, i64, i64, i64, i64, d, d, i64, i16]
+    lib.w2s_resample_q16.restype = i64
+    lib.w2s_resample_dpcm4.argtypes = [i16, i64, i64, i64, i64, d, d, i64, i64, f64, u8, ctypes.POINTER(d)]
+    lib.w2s_resample_dpcm4.restype = i64

@@ -1,23 +1,26 @@
 // Fused EDF channel decode + resample, on the host.
 //
-// The port's copy of wav2sleep_tpu/native/src/edf_decode.cpp, for the two
-// transports the port serves: w2s_decode_resample (f32 rows for
-// pipeline.NightDecoder) and w2s_resample_q8 (mu-law int8 rows for
-// pipeline.Q8NightExtractor). Both read int16 samples of one channel
-// straight out of the strided EDF record matrix (records x
-// samples-per-record) and linearly interpolate onto the model's uniform
-// grid in one pass.
+// The port's copy of wav2sleep_tpu/native/src/edf_decode.cpp. Every entry
+// reads int16 samples of one channel straight out of the strided EDF record
+// matrix (records x samples-per-record) and resamples them onto the model's
+// uniform grid in one pass:
+//   w2s_decode_resample  f32 rows (pipeline.NightDecoder)
+//   w2s_resample_q16     int16 digital codes (pipeline.Q16NightExtractor)
+//   w2s_resample_q8      mu-law int8 codes (pipeline.Q8NightExtractor)
+//   w2s_resample_dpcm4   packed 4-bit block-DPCM codes (pipeline.Q4NightExtractor)
 //
 // phys = (dig - dig_min) * bitvalue + phys_min   (edflib convention)
 // norm = phys * scale + offset                    (mV / [-1,1] mapping)
 // out[j] = lerp(sig, grid_j * fs) with zero outside [0, n-1].
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <vector>
 
 namespace {
 
-// Incremental-cursor lerp loop of the q8 transport: walks the
+// Shared incremental-cursor lerp loop for the q16/q8 transports: walks the
 // right-aligned grid pos_j = (j+1)*ratio, maintaining i0's (record, offset)
 // decomposition by carrying (no per-sample integer divisions — those
 // dominated the loop at ~28 ns/sample and blocked all ILP), reading v1
@@ -144,11 +147,52 @@ void w2s_decode_resample(
   }
 }
 
-// mu-law int8 transport: resample one channel onto the model's uniform grid
-// in the digital (int16) domain, pos_j = (j+1) * step * fs (right-aligned
-// grid), round to int16 and compand to int8 with mu=255 against the
-// per-channel digital peak V (returned via *out_vmax). Returns n_valid, the
-// grid points inside the recording; the rest are 0.
+// Quantized-grid transport: resample one channel onto the model's uniform
+// grid entirely in the *digital* (int16) domain. The lerp of two int16
+// samples stays within [digital_min, digital_max], so rounding back to int16
+// costs at most 0.5 LSB — the EDF's own quantization noise — while shipping
+// half the bytes of float32 to the device. The device applies the
+// digital->physical affine, masks grid points past the recording
+// (j >= n_valid, returned here), z-scores and runs the model; no gather.
+//
+// pos_j = (j+1) * step * fs   (right-aligned grid, preprocessing.py grid)
+int64_t w2s_resample_q16(
+    const int16_t* records,   // base of the EDF data area (memmap)
+    int64_t n_records,        // number of data records
+    int64_t record_stride,    // total int16 samples per record (all channels)
+    int64_t ch_offset,        // this channel's offset within a record
+    int64_t ch_spr,           // this channel's samples per record
+    double fs,                // sampling frequency (Hz)
+    double step,              // grid spacing (seconds)
+    int64_t m,                // grid length
+    int16_t* out)             // output, length m (digital units)
+{
+  const int64_t n = n_records * ch_spr;
+  if (n <= 0) {
+    for (int64_t j = 0; j < m; ++j) out[j] = 0;
+    return 0;
+  }
+  const double ratio = step * fs;
+  if (ratio == 1.0) {
+    // Source already on the model grid: pos_j = j+1 exactly -> strided copy.
+    const int64_t n_valid = (n - 1 < m) ? (n - 1) : m;
+    for (int64_t j = 0; j < n_valid; ++j) {
+      const int64_t i = j + 1;
+      const int64_t rec = i / ch_spr;
+      out[j] = records[rec * record_stride + ch_offset + (i - rec * ch_spr)];
+    }
+    for (int64_t k = n_valid; k < m; ++k) out[k] = 0;
+    return n_valid;
+  }
+  const int64_t n_valid = resample_cursor_loop(
+      records, n_records, record_stride, ch_offset, ch_spr, ratio, m,
+      [&](int64_t j, double v) { out[j] = static_cast<int16_t>(std::lrint(v)); });
+  for (int64_t k = n_valid; k < m; ++k) out[k] = 0;
+  return n_valid;
+}
+
+// mu-law int8 transport: like w2s_resample_q16 but companded to int8 with
+// mu=255 against the per-channel digital peak V (returned via *out_vmax).
 // Standard biosignal/audio companding: ~4.4% relative error at full scale,
 // near-LSB absolute error for small amplitudes — matched to the bf16
 // compute precision downstream while shipping half the bytes of int16.
@@ -194,6 +238,105 @@ int64_t w2s_resample_q8(
         out[j] = lut[static_cast<uint16_t>(static_cast<int16_t>(std::lrint(v)))];
       });
   for (int64_t k = n_valid; k < m; ++k) out[k] = 0;
+  return n_valid;
+}
+
+// Packed 4-bit block-DPCM transport: one fused streaming pass from the EDF
+// record matrix to [ceil(m/2) packed residual nibbles][ceil(m/K) uint8
+// scale exponents]. Codec contract (Q4NightExtractor's numpy fallback pins
+// bit-equality in tests):
+//   per K-sample block with anchor A (reconstruction of the previous
+//   block's last sample; 0.0 at night start):
+//     s = exp8_table[e], e = first index with table[e] >= max(diff-peak/6,
+//         |x_0 - A|/6.5)            (table = 2^(e/16), SHARED with Python)
+//     c_j = rint((x_j - A)/s)       (independent per sample)
+//     codes k_0 = c_0, k_j = c_j - c_{j-1}; the scale rule bounds |k| <= 7
+//     A' = A + c_last*s
+// Only a K-sample local buffer is needed — no full-grid scratch. Device
+// decode is cumsum(k * s_block): the per-block anchors telescope.
+// m is the UNPACKED grid length. Returns n_valid in unpacked sample units;
+// codes/scales past it are 0.
+int64_t w2s_resample_dpcm4(
+    const int16_t* records,
+    int64_t n_records,
+    int64_t record_stride,
+    int64_t ch_offset,
+    int64_t ch_spr,
+    double fs,
+    double step,
+    int64_t m,
+    int64_t K,
+    const double* exp8_table,
+    uint8_t* out,
+    double* out_vmax)
+{
+  const int64_t mp = (m + 1) / 2;
+  const int64_t nb = (m + K - 1) / K;
+  uint8_t* scales = out + mp;
+  for (int64_t j = 0; j < mp + nb; ++j) out[j] = 0;
+  const int64_t n = n_records * ch_spr;
+  if (n <= 0 || K <= 0) {
+    *out_vmax = 1.0;
+    return 0;
+  }
+  *out_vmax =
+      static_cast<double>(digital_peak(records, n_records, record_stride, ch_offset, ch_spr));
+
+  static thread_local std::vector<double> xbuf_store;
+  if (static_cast<int64_t>(xbuf_store.size()) < K) xbuf_store.resize(K);
+  double* xbuf = xbuf_store.data();
+
+  double A = 0.0;
+  int64_t cnt = 0;      // samples buffered in the current block
+  int64_t blk = 0;      // current block index
+  auto flush = [&]() {
+    if (cnt == 0) return;
+    double pk = 0.0;
+    for (int64_t i = 1; i < cnt; ++i) {
+      const double d = std::fabs(xbuf[i] - xbuf[i - 1]);
+      if (d > pk) pk = d;
+    }
+    const double need = std::max(pk / 6.0, std::fabs(xbuf[0] - A) / 6.5);
+    int64_t e = std::lower_bound(exp8_table, exp8_table + 256, need) - exp8_table;
+    if (e > 255) e = 255;
+    const double s = exp8_table[e];
+    scales[blk] = static_cast<uint8_t>(e);
+    const int64_t base = blk * K;
+    long cprev = 0;
+    for (int64_t i = 0; i < cnt; ++i) {
+      const long c = std::lrint((xbuf[i] - A) / s);
+      const long k = c - cprev;
+      cprev = c;
+      const uint8_t nib =
+          k < 0 ? static_cast<uint8_t>(0x8 | (-k)) : static_cast<uint8_t>(k);
+      const int64_t j = base + i;
+      out[j >> 1] |= (j & 1) ? static_cast<uint8_t>(nib << 4) : nib;
+    }
+    A += static_cast<double>(cprev) * s;
+    ++blk;
+    cnt = 0;
+  };
+  auto push = [&](double xv) {
+    xbuf[cnt++] = xv;
+    if (cnt == K) flush();
+  };
+
+  const double ratio = step * fs;
+  int64_t n_valid;
+  if (ratio == 1.0) {
+    n_valid = (n - 1 < m) ? (n - 1) : m;
+    for (int64_t j = 0; j < n_valid; ++j) {
+      const int64_t i = j + 1;
+      const int64_t rec = i / ch_spr;
+      push(static_cast<double>(
+          records[rec * record_stride + ch_offset + (i - rec * ch_spr)]));
+    }
+  } else {
+    n_valid = resample_cursor_loop(
+        records, n_records, record_stride, ch_offset, ch_spr, ratio, m,
+        [&](int64_t, double v) { push(std::nearbyint(v)); });
+  }
+  flush();  // partial final block
   return n_valid;
 }
 
