@@ -8,9 +8,10 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. Build: compiles ``csrc/conv_k3.cu`` (K1, K2) and ``csrc/ema_norm.cu``
-   (K3) with nvcc and the native host library (``native/src``, EDF decode
-   and the f64 EMA) with g++, all three at once; prints each build time.
+2. Build: compiles ``csrc/conv_k3.cu`` (K1, K2), ``csrc/ema_norm.cu``
+   (K3) and ``csrc/conv_variants.cu`` (the five profiling variants) with
+   nvcc and the native host library (``native/src``, EDF decode and the f64
+   EMA) with g++, all four at once; prints each build time.
 3. K1 against its plain PyTorch version (``conv_k3_reference``) at every
    (C_in, C_out, stride) of the flagship encoders, at the ECG encoder's
    lengths for a batch of 8 ten-hour nights, with phi as the identity and as
@@ -66,6 +67,19 @@ Phases (any failure raises, so the script exits non-zero):
    with each other ``--transport`` and one with ``--precision float32``,
    each giving 16 valid files.
 
+10. Profile variants: the K1 bisection ladder of ``ops/conv_variants.py``
+   (``scripts/profile_pallas_variants.py``'s kernels) at x [8, 153,600, 128]
+   bf16, tb 2048: ``python -m wav2sleep_tpu_torch.profile_variants``'s
+   ``run`` once (its JSON line; launches counted from 0 around it); then each
+   kernel against its plain version on the same inputs, V0 bit for bit and
+   the others within ``BF16_TOL`` of |plain| + rms(plain), V7 with zero,
+   random and true-neighbour halos (``run`` holds the last against K1); each
+   rung, its plain version, K1 and one PyTorch call of the same function
+   (``Tensor.copy_``, ``torch.matmul``, ``torch.einsum``, ``F.conv1d`` of
+   the tiles, ``F.conv1d``), each library call first held against the plain
+   version, timed both ways, with the share of the bound and the gaps
+   between rungs.
+
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
 before it runs. The line before the last is a JSON object describing the
@@ -78,7 +92,6 @@ import contextlib
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -91,6 +104,7 @@ from wav2sleep_tpu_torch.bench_conv import both_ms, cuda_ms
 from wav2sleep_tpu_torch.bench_ema import rates as ema_rates
 from wav2sleep_tpu_torch.bench_ema import serving_rows
 from wav2sleep_tpu_torch.pipeline import grid_length
+from wav2sleep_tpu_torch.utils import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIGNALS = ('ECG', 'PPG', 'ABD', 'THX')
@@ -134,14 +148,6 @@ def fmt(t: tuple[float, float]) -> str:
     return f'{t[0]:.4f} ({t[1]:.4f})'
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     """Least time in ms the card could take: the larger of the bytes over
     the memory rate and the operations over the peak for the dtype."""
@@ -173,20 +179,21 @@ def zero_counts(k1, k3) -> None:
     k1.LAUNCHES = k1.STATS_LAUNCHES = k3.LAUNCHES = 0
 
 
-def phase_build(k1, k3, native):
-    """Build the two kernel libraries and the native host library at once."""
+def phase_build(k1, k3, cv, native):
+    """Build the three kernel libraries and the native host library at once."""
 
     def timed(name, fn):
         t0 = time.time()
         fn()
         return name, time.time() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(timed, n, f) for n, f in (
-            ('conv_k3.cu (K1, K2)', k1.build), ('ema_norm.cu (K3)', k3.build), ('native host library', native.build))]
+            ('conv_k3.cu (K1, K2)', k1.build), ('ema_norm.cu (K3)', k3.build),
+            ('conv_variants.cu (V0-V7)', cv.build), ('native host library', native.build))]
         done = [f.result() for f in futures]  # raises if a build failed
     log('build: ' + ', '.join(f'{n} {s:.1f} s' for n, s in done))
-    for name, mod in (('conv_k3.cu', k1), ('ema_norm.cu', k3)):
+    for name, mod in (('conv_k3.cu', k1), ('ema_norm.cu', k3), ('conv_variants.cu', cv)):
         text = mod.BUILD_LOG
         regs = [int(v) for v in re.findall(r'Used (\d+) registers', text)]
         smem = [int(v) for v in re.findall(r'(\d+) bytes smem', text)]
@@ -876,6 +883,123 @@ def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
     return launches
 
 
+# Phase 10's shape: scripts/profile_pallas_variants.py's, K1's hot shape
+# (B = 8 ten-hour nights of 16 channels at 1,228,800 samples, 128 lanes).
+VARIANT_B, VARIANT_NB, VARIANT_TB = 8, 153_600, 2048
+VARIANT_REPLACES = {'copy': 79, 'mm1f': 85, 'mm3': 93, 'mm3s': 106, 'v7': 136}
+
+
+def variant_library_calls(torch, F, x, w, tb):
+    """One PyTorch call of each rung's function on x [B, nb, 128] and W:
+    name -> (the call, its output back in x's layout). V3's einsum contracts
+    the tap axis, which only W has, first: x @ bf16(W0 + W1 + W2). V4 is a
+    zero-padded conv of each tile of tb rows, the tiles a batch of a
+    [B * nb / tb, 128, tb] view. V7 with true halos is the conv over all nb
+    rows. The views are free; cuDNN copies them to its layout in the call."""
+    B, nb, D = x.shape
+    w_oik = w.permute(2, 1, 0).contiguous()
+    y = torch.empty_like(x)
+    tiles = x.view(B * nb // tb, tb, D).transpose(1, 2)
+    return {
+        'copy': (lambda: y.copy_(x), lambda out: out),
+        'mm1f': (lambda: torch.matmul(x, w[0]), lambda out: out),
+        'mm3': (lambda: torch.einsum('bnc,kco->bno', x, w), lambda out: out),
+        'mm3s': (lambda: F.conv1d(tiles, w_oik, None, padding=1),
+                 lambda out: out.transpose(1, 2).reshape(B, nb, D)),
+        'v7': (lambda: F.conv1d(x.transpose(1, 2), w_oik, None, padding=1), lambda out: out.transpose(1, 2)),
+    }
+
+
+def phase_variants(torch, F, k1, cv, profile_variants):
+    """Phase 10: the K1 bisection ladder; returns its kernels-line entries."""
+    B, nb, tb, D = VARIANT_B, VARIANT_NB, VARIANT_TB, cv.D
+    x, w = profile_variants.inputs(B, nb, 'cuda')
+    cv.LAUNCHES.update(dict.fromkeys(cv.NAMES, 0))
+    prof = profile_variants.run(B, nb, tb, xw=(x, w))
+    launches = dict(cv.LAUNCHES)
+    if min(launches.values()) < 1:
+        raise AssertionError(f'variants: profile_variants.run did not launch every kernel: {launches}')
+    log(f'variants: profile_variants.run at x [{B}, {nb}, {D}] bf16, tb {tb}: launches {launches}; V7 with true '
+        f'halos against K1 (conv_k3 128->128 s1) in it: max|d| {prof["v7_vs_k1_max_abs_err"]:.3e} '
+        f'(<=2^-6(|y|+rms)) ok')
+
+    w0 = w[0]
+    n_halo = nb // tb * 8
+    gen = torch.Generator(device='cuda').manual_seed(10)
+    halos = {
+        'zero': (torch.zeros((B, n_halo, D), dtype=torch.bfloat16, device='cuda'),) * 2,
+        'random': tuple(torch.randn((B, n_halo, D), device='cuda', generator=gen).bfloat16() for _ in range(2)),
+        'true': cv.true_halos(x, tb),
+    }
+    xp, xn = halos['true']
+    lib_calls = variant_library_calls(torch, F, x, w, tb)
+    # name -> (kernel, plain version)
+    calls = {
+        'copy': (lambda: cv.copy(x, tb), lambda: cv.copy_reference(x, tb)),
+        'mm1f': (lambda: cv.mm1f(x, w0, tb), lambda: cv.mm1f_reference(x, w0, tb)),
+        'mm3': (lambda: cv.mm3(x, w, tb), lambda: cv.mm3_reference(x, w, tb)),
+        'mm3s': (lambda: cv.mm3s(x, w, tb), lambda: cv.mm3s_reference(x, w, tb)),
+        'v7': (lambda: cv.v7(x, xp, xn, w, tb), lambda: cv.v7_reference(x, xp, xn, w, tb)),
+    }
+
+    errs = {}
+    for name, (kernel, plain) in calls.items():
+        cases = {'': (kernel, plain)}
+        if name == 'v7':
+            cases = {f' {h} halos': ((lambda p=p, n=n: cv.v7(x, p, n, w, tb)),
+                                     (lambda p=p, n=n: cv.v7_reference(x, p, n, w, tb)))
+                     for h, (p, n) in halos.items()}
+        errs[name] = 0.0
+        for label, (k_fn, p_fn) in cases.items():
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.bfloat16:
+                raise AssertionError(f'variants: {name}{label} gives {tuple(got.shape)} {got.dtype}')
+            if name == 'copy':
+                ok, err = torch.equal(got, want), float((got.float() - want.float()).abs().max())
+            else:
+                ok, err = cv.agree(got, want, BF16_TOL)
+            if not ok:
+                raise AssertionError(f'variants: {name}{label} disagrees with its plain version (max |d| {err:.3e})')
+            errs[name] = max(errs[name], err)
+            log(f'variants: {name}{label} against its plain version: max|d| {err:.3e} '
+                f'({"bit for bit" if name == "copy" else "<=2^-6(|y|+rms)"}) ok')
+            del got, want
+        lib, lib_y = lib_calls[name]
+        same, err = cv.agree(lib_y(lib()), plain(), BF16_TOL)
+        if not same:
+            raise AssertionError(f'variants: the library call is not the function of {name} (max |d| {err:.3e})')
+        log(f'variants: {name}\'s library call against its plain version: max|d| {err:.3e} (<=2^-6(|y|+rms)) ok')
+    torch.cuda.empty_cache()
+
+    entries, times = [], {}
+    for name, (kernel, plain) in calls.items():
+        taps = {'copy': 0, 'mm1f': 1}.get(name, 3)
+        n_bytes = 2 * (2 * B * nb * D + taps * D * D + (2 * B * n_halo // 8 * D if name == 'v7' else 0))
+        bound_ms, bound_by = bound(n_bytes, 2 * B * nb * D * D * taps, 'bfloat16')
+        ms, plain_ms = both_ms(kernel), both_ms(plain)
+        lib_ms = both_ms(lib_calls[name][0])
+        times[name] = ms
+        log(f'variants: {name} ({"true halos" if name == "v7" else "x " + str(list(x.shape))}): ms one call '
+            f'(back to back): kernel {fmt(ms)}, plain {fmt(plain_ms)}, library {fmt(lib_ms)}, '
+            f'bound {bound_ms:.4f} ({bound_by}), {100 * bound_ms / ms[0]:.1f}% ({100 * bound_ms / ms[1]:.1f}%) '
+            f'of the bound')
+        entries.append(dict(
+            name=f'conv_variants.{name}', route='cuda', source='wav2sleep_tpu_torch/csrc/conv_variants.cu',
+            replaces=f'scripts/profile_pallas_variants.py:{VARIANT_REPLACES[name]}', launches=launches[name],
+            max_abs_err=errs[name], ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1], library_call_ms=lib_ms[1]))
+    times['k1'] = both_ms(lambda: k1.conv_k3(x, w))
+    log(f'variants: K1 (conv_k3 128->128 s1) on the same x and W: {fmt(times["k1"])} ms one call (back to back)')
+    for a, b in (('mm1f', 'copy'), ('mm3', 'mm1f'), ('mm3s', 'mm3'), ('v7', 'mm3'), ('k1', 'v7')):
+        log(f'variants: gap {a} - {b}: {times[a][0] - times[b][0]:+.4f} ms one call, '
+            f'{times[a][1] - times[b][1]:+.4f} ms back to back')
+    log('variants: profile_variants marginal ms: ' + ', '.join(
+        f'{key} {prof[key]:.4f}' for key in ('copy_ms', 'mm1_f32acc_ms', 'mm3_ms', 'mm3_shift_ms', 'v7_full_ms',
+                                             'k1_ms', 'conv1d_ms', 'bound_ms')))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -886,7 +1010,9 @@ def main() -> int:
     from wav2sleep_tpu_torch import native, pipeline
     from wav2sleep_tpu_torch.models import layers, wav2sleep
     from wav2sleep_tpu_torch.ops import block_domain as bd
+    from wav2sleep_tpu_torch import profile_variants
     from wav2sleep_tpu_torch.ops import conv_k3 as k1
+    from wav2sleep_tpu_torch.ops import conv_variants as cv
     from wav2sleep_tpu_torch.ops import ema_norm as k3
 
     torch.backends.cudnn.allow_tf32 = False
@@ -896,7 +1022,7 @@ def main() -> int:
     log(f'device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}')
     log(f'nvidia-smi: {card}')
 
-    phase_build(k1, k3, native)
+    phase_build(k1, k3, cv, native)
     with torch.inference_mode():
         k1_err, k1_line = phase_k1(torch, F, k1, bd.block_stats)
         k2_err, k2_line = phase_k2(torch, k1, bd.block_stats)
@@ -913,6 +1039,8 @@ def main() -> int:
             f'with write_edf in {time.time() - t0:.1f} s (set-up)')
         main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
         phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
+    with torch.inference_mode():
+        variant_lines = phase_variants(torch, F, k1, cv, profile_variants)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -930,6 +1058,9 @@ def main() -> int:
         dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
              max_abs_err=k3_err, **k3_line),
+        # The five profiling variants: phase 10, x [8, 153,600, 128] bf16,
+        # tb 2048; launches: the profile_variants run.
+        *variant_lines,
     ]
     log(f'nvidia-smi: {card}')
     print(json.dumps({'kernels': kernels}))

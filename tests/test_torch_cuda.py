@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
-NVIDIA card: K1 and K2 (``ops/conv_k3.py``) and K3 (``ops/ema_norm.py``).
+NVIDIA card: K1 and K2 (``ops/conv_k3.py``), K3 (``ops/ema_norm.py``) and
+the five profiling variants (``ops/conv_variants.py``).
 
 Every case is marked ``cuda`` and skips without a card. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -16,6 +17,7 @@ import torch
 from wav2sleep_tpu_torch.models import layers
 from wav2sleep_tpu_torch.ops import block_domain as bd
 from wav2sleep_tpu_torch.ops import conv_k3 as k1
+from wav2sleep_tpu_torch.ops import conv_variants as cv
 from wav2sleep_tpu_torch.ops import ema_norm
 
 pytestmark = pytest.mark.cuda
@@ -427,3 +429,75 @@ def test_transport_forwards_match_the_cpu(card, kind):
     want, got = logits('cpu'), logits(card)
     assert got.shape == (B, 30, 4) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+
+
+# (B, tb, nT) for the profiling variants: the function's tiles of 8, 16, 24
+# and 2048 rows, nb = tb nT not a multiple of the kernel's 64-row item
+# wherever tb allows it, one batch row, and one case of thousands of items
+# (several per persistent block, through the ring).
+VARIANT_CASES = [(1, 8, 13), (2, 8, 13), (1, 16, 7), (2, 16, 5), (1, 24, 5), (2, 24, 11), (1, 2048, 3),
+                 (2, 2048, 2), (4, 24, 2000)]
+
+
+def _variant_inputs(B, tb, n_t, device, seed):
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, torch.bfloat16)  # noqa: E731
+    return (bf(rng.normal(size=(B, tb * n_t, 128))), bf(rng.normal(size=(3, 128, 128)) * 0.1),
+            bf(rng.normal(size=(B, n_t * 8, 128))), bf(rng.normal(size=(B, n_t * 8, 128))))
+
+
+def _variant_args(name, x, w, xp, xn):
+    return {'copy': (x,), 'mm1f': (x, w[0]), 'mm3': (x, w), 'mm3s': (x, w), 'v7': (x, xp, xn, w)}[name]
+
+
+@pytest.mark.parametrize('name', cv.NAMES)
+@pytest.mark.parametrize('B,tb,n_t', VARIANT_CASES)
+def test_variant_matches_plain(card, name, B, tb, n_t):
+    """V0 bit for bit; the others within 2**-6 of |plain| + rms(plain), as
+    bf16 K1 (both round exact-product f32 sums to bf16 once). V7's halos are
+    random."""
+    args = _variant_args(name, *_variant_inputs(B, tb, n_t, card, seed=B * tb + n_t))
+    before = cv.LAUNCHES[name]
+    got = getattr(cv, name)(*args, tb)
+    assert cv.LAUNCHES[name] == before + 1
+    want = getattr(cv, f'{name}_reference')(*args, tb)
+    assert got.shape == want.shape == (B, tb * n_t, 128) and got.dtype == torch.bfloat16 and got.is_contiguous()
+    if name == 'copy':
+        assert torch.equal(got, want)
+    else:
+        ok, err = cv.agree(got, want, 2**-6)
+        assert ok, err
+
+
+@pytest.mark.parametrize('B,tb,n_t', [(1, 8, 13), (2, 24, 11), (2, 2048, 2), (4, 24, 2000)])
+def test_v7_with_true_halos_is_k1(card, B, tb, n_t):
+    x, w, _, _ = _variant_inputs(B, tb, n_t, card, seed=tb + n_t)
+    xp, xn = cv.true_halos(x, tb)
+    ok, err = cv.agree(cv.v7(x, xp, xn, w, tb), k1.conv_k3(x, w), 2**-6)
+    assert ok, err
+
+
+def test_variants_refuse_what_they_do_not_take(card):
+    x, w, xp, xn = _variant_inputs(1, 16, 4, card, seed=5)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=card)
+    shifted = flat[1:].view(x.shape)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for name in cv.NAMES:
+        fn = getattr(cv, name)
+        with pytest.raises(ValueError, match=r'\[B, nb, 128\]'):
+            fn(*_variant_args(name, x[..., :64].contiguous(), w, xp, xn), 16)
+        with pytest.raises(ValueError, match='multiple of tb'):
+            fn(*_variant_args(name, x, w, xp, xn), 24)
+        with pytest.raises(ValueError, match='multiple of 8'):
+            fn(*_variant_args(name, x, w, xp, xn), 4)
+        with pytest.raises(TypeError, match='dtype'):
+            fn(*_variant_args(name, x.float(), w, xp, xn), 16)
+        with pytest.raises(ValueError, match='16-byte aligned'):
+            fn(*_variant_args(name, shifted, w, xp, xn), 16)
+        if name != 'copy':
+            with pytest.raises(ValueError, match='w is on cpu'):
+                fn(*_variant_args(name, x, w.cpu(), xp, xn), 16)
+            with pytest.raises(TypeError, match='w has dtype'):
+                fn(*_variant_args(name, x, w.half(), xp, xn), 16)
+    with pytest.raises(ValueError, match='xp has shape'):
+        cv.v7(x, xp[:, :8].contiguous(), xn, w, 16)

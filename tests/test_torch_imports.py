@@ -72,6 +72,9 @@ with tempfile.TemporaryDirectory() as d:
                 '--device', 'cpu', '--max-length-hours', str(1 / 120), '--batch-size', '1'])
     with open(d + '/out/n.preds.csv') as f:
         assert f.read().startswith('Timestamp,Pred\\n2000-01-01 22:00:30,')
+# The profiling entry point on the CPU (the ladder's plain versions and K1's).
+from wav2sleep_tpu_torch import profile_variants
+assert profile_variants.run(B=1, nb=16, tb=8, k=2, reps=1, device='cpu')['device'] == 'cpu'
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('IMPORTED', len(mods), 'LEAKED', leaked)
 '''
@@ -85,12 +88,14 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 21, proc.stdout  # every module of the package was reached
+    assert n >= 23, proc.stdout  # every module of the package was reached
 
 
 def _port_files():
     files = [p for p in PORT.rglob('*') if p.suffix in ('.py', '.cu', '.cpp')] + [ROOT / 'chip_smoke.py']
     assert len(files) >= 20
+    for name in ('csrc/conv_variants.cu', 'ops/conv_variants.py', 'profile_variants.py'):
+        assert PORT / name in files, name
     return files
 
 

@@ -1,0 +1,417 @@
+// The K1 bisection ladder: scripts/profile_pallas_variants.py's five kernels
+// for sm_90a, at 128 channels in and out, bf16 in, f32 sums, bf16 out.
+//
+//   V0 (k_copy, :79)   y = x
+//   V2 (k_mm1f, :85)   y = x @ W0
+//   V3 (k_mm3, :93)    y = x @ W0 + x @ W1 + x @ W2
+//   V4 (k_mm3s, :106)  per tile of tb rows: y = x @ W1, plus x @ W0 shifted
+//                      down one row, plus x @ W2 shifted up one row, with 0
+//                      shifted in at both edges of every tile of tb rows
+//   V7 (k_v7, :136)    per tile t of tb rows: y = xm1 @ W0 + x @ W1 + xp1 @ W2
+//                      with xm1 = [xp[b, 8t], x[0:tb-1]] and
+//                      xp1 = [x[1:tb], xn[b, 8t]]: K1 at 128 -> 128, stride 1,
+//                      when the halo rows are the true neighbours
+//
+// x is [batch, nb, 128], W [taps, 128, 128] used as x @ W[j] (K1's layout),
+// xp and xn [batch, (nb / tb) * 8, 128], of which V7 reads row 8t.
+//
+// What bounds them on an H100: every rung reads x once and writes y once,
+// 2 x nb x 256 bytes a batch row, and does 0, 256 or 768 FLOPs a row of 256
+// bytes read: at most 192 FLOPs a byte, under the ~295 where the bf16 tensor
+// cores (989 TFLOP/s) stop being bound by HBM (3.35 TB/s). So all five are
+// bound by bytes, provided the products run on the tensor cores.
+//
+// Design. V0 is a 16-byte vectorised grid-stride copy. V2, V3, V4 and V7 are
+// one template over the mode, built from the parts of K1's bf16 main loop
+// (conv_k3.cu, conv_k3_mma_kernel at 128 -> 128), so that the rungs bisect
+// K1's own design:
+// - mma.sync m16n8k16 fed by ldmatrix, f32 accumulators; 16 warps, 4 in M
+//   (16 rows each) x 4 in N (32 columns each): one pass of 64 rows is one
+//   item.
+// - Persistent blocks (occupancy x SMs) stage the weights once, as
+//   [tap][out][in] with a row pitch of 16 x 17 bytes, so ldmatrix reads B
+//   without .trans and without bank conflicts; 96 KB for three taps, hence
+//   dynamic shared memory above 48 KB.
+// - x comes in through a two-slot ring of 16-byte cp.async copies (the next
+//   item's rows in flight while this one computes), zero outside [0, nb).
+// - y is rounded to bf16 once, staged in shared memory and written in
+//   16-byte vectors.
+// The modes differ only where the ladder asks them to:
+// - V2 and V3 read the item's 64 rows; V3 sums its three taps in one
+//   accumulator, each tap an ldmatrix of the same rows.
+// - V4 keeps three accumulators and shifts two of them on the f32 OUTPUT
+//   side. A shift of one row crosses the mma fragments' rows (and warps), so
+//   it goes through an f32 exchange buffer in shared memory: x @ W0 is
+//   written one row down, read back and added (0 at the function's tile
+//   edges), then x @ W2 one row up. The products of the rows just outside
+//   the item (t0 - 1 with W0, t0 + 64 with W2) belong to other items, so
+//   the first and the last warps in M each run one more m16 tile on the
+//   tensor cores, every A row of it that staged neighbour row.
+// - V7 shifts on the bf16 INPUT side, as K1 does: tap j of output row i
+//   reads staged row i + j through the lane's ldmatrix address, one
+//   accumulator; at an edge of the function's tiles (row % tb == 0 for tap
+//   0, tb - 1 for tap 2) the lane's address points at the staged halo row
+//   (row 8t of xp or xn) instead. The function's tile edges may fall
+//   anywhere in an item: tb and the 64-row item need not divide each other.
+//   Divisions by tb are a multiply and a shift (FastDiv).
+//
+// Plain C interface, loaded with ctypes; see ops/conv_variants.py.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 128;                 // channels in and out
+constexpr int kTile = 64;               // rows per item: 4 warps in M x 16
+constexpr int kThreads = 512;           // 16 warps
+constexpr int kWarpsN = 4;              // warps across the 128 columns
+constexpr int kWarpsM = kThreads / 32 / kWarpsN;  // 4: 16 rows each
+constexpr int kWarpCols = kD / kWarpsN; // 32: four n8 tiles
+constexpr int kNT = kWarpCols / 8;
+constexpr int kPitch = kD + 8;          // bf16 per staged row: 272 bytes = 16 x 17
+constexpr uint32_t kPitchB = 2 * kPitch;
+constexpr int kChunks = kD / 8;         // 16-byte chunks per row
+constexpr int kWin = kTile + 2;         // staged window: rows t0 - 1 .. t0 + kTile
+// Rows 8t of xp (and of xn) one item can need: tiles of the function that
+// meet 64 rows, at tb >= 8.
+constexpr int kHalo = kTile / 8 + 1;
+constexpr int kSlotRows = kWin + 2 * kHalo;
+constexpr int kExPitch = kD + 4;        // f32 exchange row (V4)
+constexpr int kCopyUnroll = 4;
+
+enum Mode { kCopy = 0, kMm1 = 2, kMm3 = 3, kMm3s = 4, kV7 = 7 };
+
+template <int MODE>
+__host__ __device__ constexpr int taps() { return MODE == kMm1 ? 1 : 3; }
+
+// Weights, two ring slots, the y tile, and for V4 the f32 exchange rows.
+template <int MODE>
+constexpr size_t smem_bytes() {
+  return 2 * ((size_t)taps<MODE>() * kD * kPitch + 2 * (size_t)kSlotRows * kPitch + (size_t)kTile * kPitch) +
+         (MODE == kMm3s ? 4 * (size_t)kWin * kExPitch : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled when
+// src_bytes is 0.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// V0: n 16-byte vectors, kCopyUnroll loads in flight per thread.
+__global__ void __launch_bounds__(256) copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, size_t n) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + (kCopyUnroll - 1) * stride < n; i += kCopyUnroll * stride) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) v[u] = x[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) y[i + u * stride] = v[u];
+  }
+  for (; i < n; i += stride) y[i] = x[i];
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (CUTLASS's FastDivmod):
+// tb is a kernel argument, and an integer division by it costs tens of
+// instructions, enough to show on the ladder's rungs.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+  __device__ __forceinline__ int div(int n) const {
+    return static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >> shr);
+  }
+};
+
+FastDiv make_fast_div(int d) {  // d >= 2
+  int log2 = 31 - __builtin_clz(static_cast<unsigned>(d));
+  log2 += (d & (d - 1)) != 0;
+  const unsigned p = 31 + log2;
+  return {d, static_cast<uint32_t>(((1ull << p) + d - 1) / d), p - 32};
+}
+
+// V2, V3, V4, V7. Persistent: block k walks items blockIdx.x + k gridDim.x,
+// item = b * n_tiles + t0 / kTile.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads, 1) variant_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ xp,
+    const bf16* __restrict__ xn, bf16* __restrict__ y, int batch, int nb, FastDiv tb) {
+  constexpr int kTaps = taps<MODE>();
+  constexpr bool kWindow = MODE == kMm3s || MODE == kV7;  // reads rows t0 - 1 and t0 + kTile
+  constexpr int kAcc = MODE == kMm3s ? 3 : 1;
+  const int n_tiles = (nb + kTile - 1) / kTile;
+  const int n_items = batch * n_tiles;
+  const int n_fn = tb.div(nb);  // the function's tiles per batch row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* slots = ws + kTaps * kD * kPitch;
+  bf16* ys = slots + 2 * kSlotRows * kPitch;
+  float* ex = reinterpret_cast<float*>(ys + kTile * kPitch);
+
+  // Staged rows of item into slot: the window (window row r is x[t0 - 1 + r],
+  // zero outside [0, nb); V2 and V3 take rows 1..kTile only), then for V7
+  // row 8f of xp and of xn for the function's tiles f = t0 / tb, ... that the
+  // item's rows meet.
+  auto load = [&](int item, int slot) {
+    const int b = item / n_tiles;
+    const int t0 = (item - b * n_tiles) * kTile;
+    const bf16* xb = x + (size_t)b * nb * kD;
+    bf16* dst = slots + slot * kSlotRows * kPitch;
+    constexpr int r_lo = kWindow ? 0 : 1, r_hi = kWindow ? kWin : kTile + 1;
+    for (int q = tid; q < (r_hi - r_lo) * kChunks; q += kThreads) {
+      const int r = r_lo + q / kChunks, cc = q % kChunks;
+      const long t = (long)t0 - 1 + r;
+      const bool ok = t >= 0 && t < nb;
+      cp_async16(smem_u32(dst + r * kPitch + cc * 8), ok ? xb + t * kD + cc * 8 : x, ok ? 16 : 0);
+    }
+    if constexpr (MODE == kV7) {
+      const int f0 = tb.div(t0);
+      const int nh = tb.div(min(t0 + kTile, nb) - 1) - f0 + 1;  // <= kHalo
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const bf16* src = (side ? xn : xp) + ((size_t)b * n_fn + f0) * 8 * kD;
+        for (int q = tid; q < nh * kChunks; q += kThreads) {
+          const int h = q / kChunks, cc = q % kChunks;
+          cp_async16(smem_u32(dst + (kWin + side * kHalo + h) * kPitch + cc * 8),
+                     src + (size_t)h * 8 * kD + cc * 8, 16);
+        }
+      }
+    }
+  };
+
+  load(blockIdx.x, 0);
+  cp_async_commit();
+  // Weights as ws[(j * kD + o) * kPitch + c] = w[j, c, o].
+  for (int e = tid; e < kTaps * kD * kD; e += kThreads) {
+    const int o = e % kD, c = (e / kD) % kD, j = e / (kD * kD);
+    ws[(j * kD + o) * kPitch + c] = w[e];
+  }
+
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int n0 = wn * kWarpCols;
+  const int arow = wm * 16 + (lane & 15);  // the item row whose A address this lane gives
+  const uint32_t a_k = (lane >> 4) * 16;   // and its k offset, bytes
+  // B: two n8 tiles per ldmatrix x4, rows n0 + (lane & 7) + (lane >> 4) * 8
+  // at k offset ((lane >> 3) & 1) * 8.
+  const uint32_t b_lane = (n0 + (lane & 7) + ((lane >> 4) << 3)) * kPitchB + ((lane >> 3) & 1) * 16;
+  const int g = lane >> 2, tq = lane & 3;  // accumulator row and column pair
+  const int row0 = wm * 16 + g;            // the lane's accumulator rows: row0 and row0 + 8
+  const uint32_t ws_a = smem_u32(ws);
+
+  for (int k = 0, item = blockIdx.x; item < n_items; ++k, item += gridDim.x) {
+    if (item + (int)gridDim.x < n_items) load(item + gridDim.x, (k + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: item k has landed
+    __syncthreads();
+    const int b = item / n_tiles, t0 = (item - b * n_tiles) * kTile;
+    const uint32_t xs_a = smem_u32(slots + (k & 1) * kSlotRows * kPitch);
+
+    // Staged row that tap j of the lane's row reads.
+    auto a_row = [&](int j) -> int {
+      if constexpr (MODE == kV7) {
+        const int r = t0 + arow;
+        if (r < nb && j != 1) {
+          const int f = tb.div(r), rem = r - f * tb.d;
+          if (j == 0 && rem == 0) return kWin + f - tb.div(t0);
+          if (j == 2 && rem == tb.d - 1) return kWin + kHalo + f - tb.div(t0);
+        }
+        return arow + j;
+      }
+      return arow + 1;
+    };
+
+    float acc[kAcc][kNT][4] = {};
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) {
+      const uint32_t a_tap = xs_a + a_row(j) * kPitchB + a_k;
+      const uint32_t b_tap = ws_a + j * kD * kPitchB + b_lane;
+      float(&c)[kNT][4] = acc[kAcc == 3 ? j : 0];
+      // V4: the products of the rows just outside the item belong to other
+      // items; the first warps in M also take x[t0 - 1] @ W0 and the last
+      // x[t0 + kTile] @ W2, with that row as every A row of one more m16 tile.
+      const bool edge = kAcc == 3 && (j == 0 ? wm == 0 : j == 2 && wm == kWarpsM - 1);
+      const int edge_row = j == 0 ? 0 : kWin - 1;
+      const uint32_t e_tap = xs_a + edge_row * kPitchB + a_k;
+      float e[kNT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t bf[kNT / 2][4];
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) ldmatrix_x4(bf[np], b_tap + np * 16 * kPitchB + kk * 32);
+        uint32_t af[4];
+        ldmatrix_x4(af, a_tap + kk * 32);
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) mma_bf16(c[ni], af, bf[ni / 2][2 * (ni & 1)], bf[ni / 2][2 * (ni & 1) + 1]);
+        if (edge) {
+          ldmatrix_x4(af, e_tap + kk * 32);
+#pragma unroll
+          for (int ni = 0; ni < kNT; ++ni) mma_bf16(e[ni], af, bf[ni / 2][2 * (ni & 1)], bf[ni / 2][2 * (ni & 1) + 1]);
+        }
+      }
+      if (edge && g == 0) {
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          *reinterpret_cast<float2*>(ex + edge_row * kExPitch + n0 + ni * 8 + 2 * tq) = make_float2(e[ni][0], e[ni][1]);
+      }
+    }
+
+    if constexpr (MODE == kMm3s) {
+      // The shift on the f32 outputs: ex[i + 1] holds item row i's product,
+      // ex[0] and ex[kWin - 1] the edge rows' (written above). Tap 0 is read
+      // back from ex[i] (row i - 1's product), tap 2 from ex[i + 2]; each is
+      // added as 0 at the function's tile edges.
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) {
+          const int col = n0 + ni * 8 + 2 * tq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(ex + (row0 + 8 * h + 1) * kExPitch + col) =
+                make_float2(acc[2 * s][ni][2 * h], acc[2 * s][ni][2 * h + 1]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = t0 + row0 + 8 * h, rem = r - tb.div(r) * tb.d;
+          const bool zero = s == 0 ? rem == 0 : rem == tb.d - 1;
+#pragma unroll
+          for (int ni = 0; ni < kNT; ++ni) {
+            const int col = n0 + ni * 8 + 2 * tq;
+            const float2 v = *reinterpret_cast<const float2*>(ex + (row0 + 8 * h + 2 * s) * kExPitch + col);
+            acc[1][ni][2 * h] += zero ? 0.0f : v.x;
+            acc[1][ni][2 * h + 1] += zero ? 0.0f : v.y;
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    // One rounding to bf16, into the staged y tile.
+    constexpr int out = kAcc == 3 ? 1 : 0;
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int col = n0 + ni * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(ys + row0 * kPitch + col) =
+          __floats2bfloat162_rn(acc[out][ni][0], acc[out][ni][1]);
+      *reinterpret_cast<__nv_bfloat162*>(ys + (row0 + 8) * kPitch + col) =
+          __floats2bfloat162_rn(acc[out][ni][2], acc[out][ni][3]);
+    }
+    __syncthreads();
+
+    // The item's rows are contiguous in y: 16-byte stores.
+    const int n_valid = min(kTile, nb - t0);
+    bf16* yb = y + ((size_t)b * nb + t0) * kD;
+    for (int q = tid; q < n_valid * kChunks; q += kThreads) {
+      const int r = q / kChunks, cc = q % kChunks;
+      *reinterpret_cast<uint4*>(yb + (size_t)q * 8) = *reinterpret_cast<const uint4*>(ys + r * kPitch + cc * 8);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Blocks of variant_kernel<MODE> resident on the current device, over all SMs.
+template <int MODE>
+int resident(int* blocks) {
+  const void* kernel = reinterpret_cast<const void*>(variant_kernel<MODE>);
+  constexpr size_t smem = smem_bytes<MODE>();
+  int dev = 0, sms = 0, per_sm = 0, rc = 0;
+  if ((rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
+      (rc = static_cast<int>(
+           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) != 0 ||
+      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
+      (rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem))) != 0)
+    return rc;
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+template <int MODE>
+int launch(const bf16* x, const bf16* w, const bf16* xp, const bf16* xn, bf16* y, int batch, int nb, int tb,
+           cudaStream_t stream) {
+  const long items = (long)batch * ((nb + kTile - 1) / kTile);
+  if (items >= (1L << 30)) return -1;  // item + gridDim.x stays an int
+  int blocks = 0;
+  int rc = resident<MODE>(&blocks);
+  if (rc != 0) return rc;
+  if (blocks < 1) return -1;
+  const int grid = static_cast<int>(items < blocks ? items : blocks);
+  variant_kernel<MODE><<<grid, kThreads, smem_bytes<MODE>(), stream>>>(x, w, xp, xn, y, batch, nb,
+                                                                        make_fast_div(tb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_copy(const void* x, void* y, size_t n16, cudaStream_t stream) {
+  int dev = 0, sms = 0, rc = 0;
+  if ((rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
+      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0)
+    return rc;
+  const size_t want = (n16 + 255) / 256;
+  const int grid = static_cast<int>(want < (size_t)sms * 8 ? want : (size_t)sms * 8);
+  copy_kernel<<<grid, 256, 0, stream>>>(static_cast<const uint4*>(x), static_cast<uint4*>(y), n16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+// mode: 0 = V0 (copy), 2 = V2, 3 = V3, 4 = V4, 7 = V7. x, y: bf16 [batch, nb,
+// 128]; w: bf16 [1, 128, 128] for V2, [3, 128, 128] for V3, V4, V7, unused by
+// V0; xp, xn: bf16 [batch, (nb / tb) * 8, 128] for V7, else unused. Every
+// pointer 16-byte aligned; tb > 0, tb % 8 == 0, nb % tb == 0. Returns 0 on
+// success, -1 for an unsupported configuration, otherwise the CUDA error
+// code of the launch.
+extern "C" int w2s_conv_variant(int mode, const void* x, const void* w, const void* xp, const void* xn, void* y,
+                                int batch, int nb, int tb, void* stream) {
+  if (batch <= 0 || nb <= 0 || tb <= 0 || tb % 8 != 0 || nb % tb != 0) return -1;
+  if (!aligned16(x) || !aligned16(y)) return -1;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto xb = static_cast<const bf16*>(x), wb = static_cast<const bf16*>(w);
+  const auto yb = static_cast<bf16*>(y);
+  if (mode == kCopy) return launch_copy(x, y, (size_t)batch * nb * kChunks, s);
+  if (w == nullptr || !aligned16(w)) return -1;
+  switch (mode) {
+    case kMm1: return launch<kMm1>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
+    case kMm3: return launch<kMm3>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
+    case kMm3s: return launch<kMm3s>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
+    case kV7:
+      if (xp == nullptr || xn == nullptr || !aligned16(xp) || !aligned16(xn)) return -1;
+      return launch<kV7>(xb, wb, static_cast<const bf16*>(xp), static_cast<const bf16*>(xn), yb, batch, nb, tb, s);
+    default: return -1;
+  }
+}
