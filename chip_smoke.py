@@ -69,7 +69,10 @@ Phases (any failure raises, so the script exits non-zero):
 
 10. Profile variants: the K1 bisection ladder of ``ops/conv_variants.py``
    (``scripts/profile_pallas_variants.py``'s kernels) at x [8, 153,600, 128]
-   bf16, tb 2048: ``python -m wav2sleep_tpu_torch.profile_variants``'s
+   bf16, tb 2048. First the proof that V2 and V3 run on wgmma and TMA: the
+   HGMMA, UTMALDG and UTMASTG instructions of their kernels in the built
+   library's SASS (``cuobjdump -sass``), none missing, beside ptxas's
+   registers and spills. Then ``python -m wav2sleep_tpu_torch.profile_variants``'s
    ``run`` once (its JSON line; launches counted from 0 around it); then each
    kernel against its plain version on the same inputs, V0 bit for bit and
    the others within ``BF16_TOL`` of |plain| + rms(plain), V7 with zero,
@@ -887,6 +890,31 @@ def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
 # (B = 8 ten-hour nights of 16 channels at 1,228,800 samples, 128 lanes).
 VARIANT_B, VARIANT_NB, VARIANT_TB = 8, 153_600, 2048
 VARIANT_REPLACES = {'copy': 79, 'mm1f': 85, 'mm3': 93, 'mm3s': 106, 'v7': 136}
+# V2's and V3's kernels (csrc/conv_variants_wgmma.cuh) by a part of their
+# mangled names, and the SASS opcodes of wgmma, TMA loads and TMA stores.
+WGMMA_KERNELS = {'mm1f': 'mm_wgmma_kernelILi1E', 'mm3': 'mm_wgmma_kernelILi3E'}
+WGMMA_OPCODES = ('HGMMA', 'UTMALDG', 'UTMASTG')
+
+
+def wgmma_evidence(cv, cuda_build) -> dict:
+    """Per V2/V3 wrapper: its kernel's HGMMA, UTMALDG and UTMASTG counts in
+    the SASS of the built library and ptxas's registers and spilled bytes;
+    raises unless each kernel has all three opcodes."""
+    counts = cuda_build.sass_counts(cuda_build.sass(cuda_build.library_path('conv_variants.cu')), WGMMA_OPCODES)
+    ptxas = cuda_build.ptxas_report(cv.BUILD_LOG)
+    evidence = {}
+    for name, key in WGMMA_KERNELS.items():
+        found = [fn for fn in counts if key in fn]
+        if len(found) != 1 or found[0] not in ptxas:
+            raise AssertionError(f'variants: no single {key} kernel in the SASS ({found}) with a ptxas report')
+        fn, ops = found[0], counts[found[0]]
+        if min(ops.values()) < 1:
+            raise AssertionError(f'variants: {name}\'s kernel lacks wgmma or TMA in its SASS: {ops}')
+        evidence[name] = {**{f'sass_{op.lower()}': n for op, n in ops.items()},
+                          'registers': ptxas[fn]['registers'], 'spill_bytes': ptxas[fn]['spill_bytes']}
+        log(f'variants: {name} kernel {fn}: SASS ' + ', '.join(f'{op} {n}' for op, n in ops.items())
+            + f'; ptxas {ptxas[fn]["registers"]} registers, {ptxas[fn]["spill_bytes"]} bytes spilled')
+    return evidence
 
 
 def variant_library_calls(torch, F, x, w, tb):
@@ -910,9 +938,10 @@ def variant_library_calls(torch, F, x, w, tb):
     }
 
 
-def phase_variants(torch, F, k1, cv, profile_variants):
+def phase_variants(torch, F, k1, cv, cuda_build, profile_variants):
     """Phase 10: the K1 bisection ladder; returns its kernels-line entries."""
     B, nb, tb, D = VARIANT_B, VARIANT_NB, VARIANT_TB, cv.D
+    evidence = wgmma_evidence(cv, cuda_build)
     x, w = profile_variants.inputs(B, nb, 'cuda')
     cv.LAUNCHES.update(dict.fromkeys(cv.NAMES, 0))
     prof = profile_variants.run(B, nb, tb, xw=(x, w))
@@ -985,10 +1014,12 @@ def phase_variants(torch, F, k1, cv, profile_variants):
             f'bound {bound_ms:.4f} ({bound_by}), {100 * bound_ms / ms[0]:.1f}% ({100 * bound_ms / ms[1]:.1f}%) '
             f'of the bound')
         entries.append(dict(
-            name=f'conv_variants.{name}', route='cuda', source='wav2sleep_tpu_torch/csrc/conv_variants.cu',
+            name=f'conv_variants.{name}', route='cuda',
+            source='wav2sleep_tpu_torch/csrc/' + ('conv_variants_wgmma.cuh' if name in evidence else 'conv_variants.cu'),
             replaces=f'scripts/profile_pallas_variants.py:{VARIANT_REPLACES[name]}', launches=launches[name],
             max_abs_err=errs[name], ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1], library_call_ms=lib_ms[1]))
+            library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1], library_call_ms=lib_ms[1],
+            **evidence.get(name, {})))
     times['k1'] = both_ms(lambda: k1.conv_k3(x, w))
     log(f'variants: K1 (conv_k3 128->128 s1) on the same x and W: {fmt(times["k1"])} ms one call (back to back)')
     for a, b in (('mm1f', 'copy'), ('mm3', 'mm1f'), ('mm3s', 'mm3'), ('v7', 'mm3'), ('k1', 'v7')):
@@ -1013,6 +1044,7 @@ def main() -> int:
     from wav2sleep_tpu_torch import profile_variants
     from wav2sleep_tpu_torch.ops import conv_k3 as k1
     from wav2sleep_tpu_torch.ops import conv_variants as cv
+    from wav2sleep_tpu_torch.ops import cuda_build
     from wav2sleep_tpu_torch.ops import ema_norm as k3
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1040,7 +1072,7 @@ def main() -> int:
         main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
         phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
     with torch.inference_mode():
-        variant_lines = phase_variants(torch, F, k1, cv, profile_variants)
+        variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -1059,7 +1091,8 @@ def main() -> int:
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
              max_abs_err=k3_err, **k3_line),
         # The five profiling variants: phase 10, x [8, 153,600, 128] bf16,
-        # tb 2048; launches: the profile_variants run.
+        # tb 2048; launches: the profile_variants run; V2 and V3 also carry
+        # their SASS counts of HGMMA, UTMALDG, UTMASTG and ptxas registers.
         *variant_lines,
     ]
     log(f'nvidia-smi: {card}')

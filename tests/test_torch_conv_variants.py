@@ -28,7 +28,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from wav2sleep_tpu_torch import profile_variants
+from wav2sleep_tpu_torch import card_clock, profile_variants
 from wav2sleep_tpu_torch.ops import conv_variants as cv
 from wav2sleep_tpu_torch.ops.conv_k3 import conv_k3_reference
 
@@ -171,11 +171,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(name):
 def test_profile_run_prints_the_jax_keys(capsys):
     out = profile_variants.run(B=1, nb=48, tb=16, k=2, reps=1, device='cpu')
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    keys = ('copy_ms', 'mm1_f32acc_ms', 'mm3_ms', 'mm3_shift_ms', 'v7_full_ms', 'bound_ms', 'k1_ms', 'conv1d_ms')
-    assert line == out and all(isinstance(line[k], float) for k in keys)
+    keys = ('copy_ms', 'mm1_f32acc_ms', 'mm3_ms', 'mm3_shift_ms', 'v7_full_ms', 'bound_ms', 'k1_ms', 'conv1d_ms',
+            'matmul_ms', 'einsum_ms')
+    assert line == out and all(isinstance(line[k], float) for k in keys) and 'both_ms' not in line
     assert line['device'] == 'cpu' and line['shape'] == 'B=1 nb=48 D=128 TB=16 bf16'
     assert not any('parsem' in k for k in line)
     assert line['bound_ms'] == pytest.approx(2 * 48 * D * 2 / 3.35e12 * 1e3)
+
+
+def test_profile_times_both_ways_only_on_the_card():
+    with pytest.raises(ValueError, match='needs the card'):
+        profile_variants.run(B=1, nb=48, tb=16, k=2, reps=1, device='cpu', both=True)
 
 
 def test_profile_entry_runs_on_the_card_unless_told(monkeypatch):
@@ -214,3 +220,48 @@ def test_library_calls_compute_the_functions(name, tb):
     else:
         ok, err = cv.agree(got, want, smoke.BF16_TOL)
         assert ok, err
+
+
+def _wgmma_listing(v2_ops: str) -> tuple[str, str]:
+    """A ptxas report and a SASS listing of the V2 and V3 kernels, V2's body
+    ``v2_ops``."""
+    names = {n: f'_ZN8wgmma_mm15mm_wgmma_kernelILi{n}EEEv14CUtensorMap_stS1_PK13__nv_bfloat16i' for n in (1, 3)}
+    ptxas = ''.join(f"ptxas info    : Compiling entry function '{names[n]}' for 'sm_90a'\n"
+                    f'    0 bytes stack frame, {4 * (n == 3)} bytes spill stores, 0 bytes spill loads\n'
+                    f'ptxas info    : Used {80 + n} registers, used 1 barriers\n' for n in (1, 3))
+    v3_ops = 'UTMALDG.2D [UR8], [UR4] ;\n' + 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;\n' * 24 + \
+        'UTMASTG.2D [UR4], [UR6] ;\n'
+    sass = ''.join(f'\t\tFunction : {names[n]}\n{ops}' for n, ops in ((1, v2_ops), (3, v3_ops)))
+    return ptxas, sass
+
+
+@pytest.mark.parametrize('missing', [None, 'HGMMA', 'UTMALDG', 'UTMASTG'])
+def test_chip_smoke_requires_wgmma_and_tma_in_the_sass(monkeypatch, missing):
+    """Phase 10's proof that V2 and V3 run on wgmma and TMA: the counts and
+    ptxas's registers join their kernels-line entries, and a kernel without
+    one of the three opcodes fails the run."""
+    smoke = _chip_smoke()
+    from wav2sleep_tpu_torch.ops import cuda_build
+
+    v2 = {'HGMMA': 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n', 'UTMALDG': 'UTMALDG.2D [UR8], [UR4] ;\n',
+          'UTMASTG': 'UTMASTG.2D [UR4], [UR6] ;\n'}
+    ptxas, sass = _wgmma_listing(''.join(v for op, v in v2.items() if op != missing))
+    monkeypatch.setattr(cv, 'BUILD_LOG', ptxas)
+    monkeypatch.setattr(cuda_build, 'sass', lambda path: sass)
+    if missing:
+        with pytest.raises(AssertionError, match='lacks wgmma or TMA'):
+            smoke.wgmma_evidence(cv, cuda_build)
+        return
+    assert smoke.wgmma_evidence(cv, cuda_build) == {
+        'mm1f': {'sass_hgmma': 1, 'sass_utmaldg': 1, 'sass_utmastg': 1, 'registers': 81, 'spill_bytes': 0},
+        'mm3': {'sass_hgmma': 24, 'sass_utmaldg': 1, 'sass_utmastg': 1, 'registers': 83, 'spill_bytes': 4},
+    }
+
+
+def test_card_clock_reads_nvidia_smi_and_needs_the_card(monkeypatch):
+    """The samples of ``card_clock`` as nvidia-smi prints them, and its
+    refusal without a card (it measures the card's own clock)."""
+    assert card_clock.parse('1980 MHz, 460.07 W\n1380 MHz, 705.17 W\n\n') == [(1980.0, 460.07), (1380.0, 705.17)]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='needs an NVIDIA card'):
+        card_clock.run()

@@ -432,17 +432,22 @@ def test_transport_forwards_match_the_cpu(card, kind):
 
 
 # (B, tb, nT) for the profiling variants: the function's tiles of 8, 16, 24
-# and 2048 rows, nb = tb nT not a multiple of the kernel's 64-row item
-# wherever tb allows it, one batch row, and one case of thousands of items
-# (several per persistent block, through the ring).
+# and 2048 rows, nb = tb nT not a multiple of the kernels' 64-row items and
+# tiles wherever tb allows it (V2 and V3 then zero-fill the last tile's
+# missing rows on the way in and clip them on the way out), one batch row,
+# and one case of thousands of items (several per persistent block, through
+# the ring). Then for V2 and V3, which tile the flat [B nb, 128] rows: fewer
+# rows than one tile; tiles that span two batch rows; and 10,240 tiles,
+# ~78 per block, each block's two consumers going round their ring 10 (V2)
+# to 13 (V3) times.
 VARIANT_CASES = [(1, 8, 13), (2, 8, 13), (1, 16, 7), (2, 16, 5), (1, 24, 5), (2, 24, 11), (1, 2048, 3),
-                 (2, 2048, 2), (4, 24, 2000)]
+                 (2, 2048, 2), (4, 24, 2000), (1, 8, 1), (3, 8, 5), (8, 2048, 40)]
 
 
-def _variant_inputs(B, tb, n_t, device, seed):
+def _variant_inputs(B, tb, n_t, device, seed, w_scale=0.1):
     rng = np.random.default_rng(seed)
     bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, torch.bfloat16)  # noqa: E731
-    return (bf(rng.normal(size=(B, tb * n_t, 128))), bf(rng.normal(size=(3, 128, 128)) * 0.1),
+    return (bf(rng.normal(size=(B, tb * n_t, 128))), bf(rng.normal(size=(3, 128, 128)) * w_scale),
             bf(rng.normal(size=(B, n_t * 8, 128))), bf(rng.normal(size=(B, n_t * 8, 128))))
 
 
@@ -456,7 +461,18 @@ def test_variant_matches_plain(card, name, B, tb, n_t):
     """V0 bit for bit; the others within 2**-6 of |plain| + rms(plain), as
     bf16 K1 (both round exact-product f32 sums to bf16 once). V7's halos are
     random."""
-    args = _variant_args(name, *_variant_inputs(B, tb, n_t, card, seed=B * tb + n_t))
+    _check_variant(card, name, B, tb, n_t)
+
+
+@pytest.mark.parametrize('name', cv.NAMES)
+def test_variant_matches_plain_at_large_values(card, name):
+    """W of unit scale, not 0.1: |y| ~ 11 (V2) to ~20 (V3), so that a wrong
+    swizzle, descriptor or fragment position cannot hide under small values."""
+    _check_variant(card, name, 2, 24, 11, w_scale=1.0)
+
+
+def _check_variant(card, name, B, tb, n_t, w_scale=0.1):
+    args = _variant_args(name, *_variant_inputs(B, tb, n_t, card, seed=B * tb + n_t, w_scale=w_scale))
     before = cv.LAUNCHES[name]
     got = getattr(cv, name)(*args, tb)
     assert cv.LAUNCHES[name] == before + 1

@@ -21,10 +21,11 @@
 // cores (989 TFLOP/s) stop being bound by HBM (3.35 TB/s). So all five are
 // bound by bytes, provided the products run on the tensor cores.
 //
-// Design. V0 is a 16-byte vectorised grid-stride copy. V2, V3, V4 and V7 are
-// one template over the mode, built from the parts of K1's bf16 main loop
-// (conv_k3.cu, conv_k3_mma_kernel at 128 -> 128), so that the rungs bisect
-// K1's own design:
+// Design. V0 is a 16-byte vectorised grid-stride copy. V2 and V3 are
+// Hopper's wgmma fed by TMA, in conv_variants_wgmma.cuh (its own note says
+// why). V4 and V7 are one template over the mode, built from the parts of
+// K1's bf16 main loop (conv_k3.cu, conv_k3_mma_kernel at 128 -> 128), so
+// that they bisect K1's own design:
 // - mma.sync m16n8k16 fed by ldmatrix, f32 accumulators; 16 warps, 4 in M
 //   (16 rows each) x 4 in N (32 columns each): one pass of 64 rows is one
 //   item.
@@ -36,12 +37,11 @@
 //   item's rows in flight while this one computes), zero outside [0, nb).
 // - y is rounded to bf16 once, staged in shared memory and written in
 //   16-byte vectors.
-// The modes differ only where the ladder asks them to:
-// - V2 and V3 read the item's 64 rows; V3 sums its three taps in one
-//   accumulator, each tap an ldmatrix of the same rows.
-// - V4 keeps three accumulators and shifts two of them on the f32 OUTPUT
-//   side. A shift of one row crosses the mma fragments' rows (and warps), so
-//   it goes through an f32 exchange buffer in shared memory: x @ W0 is
+// The two modes differ only where the ladder asks them to:
+// - V4 reads the item's 64 rows unshifted (window rows 1..64), keeps three
+//   accumulators and shifts two of them on the f32 OUTPUT side. A shift of
+//   one row crosses the mma fragments' rows (and warps), so it goes
+//   through an f32 exchange buffer in shared memory: x @ W0 is
 //   written one row down, read back and added (0 at the function's tile
 //   edges), then x @ W2 one row up. The products of the rows just outside
 //   the item (t0 - 1 with W0, t0 + 64 with W2) belong to other items, so
@@ -62,6 +62,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "conv_variants_wgmma.cuh"
 
 namespace {
 
@@ -86,14 +88,12 @@ constexpr int kExPitch = kD + 4;        // f32 exchange row (V4)
 constexpr int kCopyUnroll = 4;
 
 enum Mode { kCopy = 0, kMm1 = 2, kMm3 = 3, kMm3s = 4, kV7 = 7 };
-
-template <int MODE>
-__host__ __device__ constexpr int taps() { return MODE == kMm1 ? 1 : 3; }
+constexpr int kTaps = 3;
 
 // Weights, two ring slots, the y tile, and for V4 the f32 exchange rows.
 template <int MODE>
 constexpr size_t smem_bytes() {
-  return 2 * ((size_t)taps<MODE>() * kD * kPitch + 2 * (size_t)kSlotRows * kPitch + (size_t)kTile * kPitch) +
+  return 2 * ((size_t)kTaps * kD * kPitch + 2 * (size_t)kSlotRows * kPitch + (size_t)kTile * kPitch) +
          (MODE == kMm3s ? 4 * (size_t)kWin * kExPitch : 0);
 }
 
@@ -162,14 +162,12 @@ FastDiv make_fast_div(int d) {  // d >= 2
   return {d, static_cast<uint32_t>(((1ull << p) + d - 1) / d), p - 32};
 }
 
-// V2, V3, V4, V7. Persistent: block k walks items blockIdx.x + k gridDim.x,
+// V4, V7. Persistent: block k walks items blockIdx.x + k gridDim.x,
 // item = b * n_tiles + t0 / kTile.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ xp,
     const bf16* __restrict__ xn, bf16* __restrict__ y, int batch, int nb, FastDiv tb) {
-  constexpr int kTaps = taps<MODE>();
-  constexpr bool kWindow = MODE == kMm3s || MODE == kV7;  // reads rows t0 - 1 and t0 + kTile
   constexpr int kAcc = MODE == kMm3s ? 3 : 1;
   const int n_tiles = (nb + kTile - 1) / kTile;
   const int n_items = batch * n_tiles;
@@ -183,17 +181,15 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
   float* ex = reinterpret_cast<float*>(ys + kTile * kPitch);
 
   // Staged rows of item into slot: the window (window row r is x[t0 - 1 + r],
-  // zero outside [0, nb); V2 and V3 take rows 1..kTile only), then for V7
-  // row 8f of xp and of xn for the function's tiles f = t0 / tb, ... that the
-  // item's rows meet.
+  // zero outside [0, nb)), then for V7 row 8f of xp and of xn for the
+  // function's tiles f = t0 / tb, ... that the item's rows meet.
   auto load = [&](int item, int slot) {
     const int b = item / n_tiles;
     const int t0 = (item - b * n_tiles) * kTile;
     const bf16* xb = x + (size_t)b * nb * kD;
     bf16* dst = slots + slot * kSlotRows * kPitch;
-    constexpr int r_lo = kWindow ? 0 : 1, r_hi = kWindow ? kWin : kTile + 1;
-    for (int q = tid; q < (r_hi - r_lo) * kChunks; q += kThreads) {
-      const int r = r_lo + q / kChunks, cc = q % kChunks;
+    for (int q = tid; q < kWin * kChunks; q += kThreads) {
+      const int r = q / kChunks, cc = q % kChunks;
       const long t = (long)t0 - 1 + r;
       const bool ok = t >= 0 && t < nb;
       cp_async16(smem_u32(dst + r * kPitch + cc * 8), ok ? xb + t * kD + cc * 8 : x, ok ? 16 : 0);
@@ -251,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
         }
         return arow + j;
       }
-      return arow + 1;
+      return arow + 1;  // V4: the item's own row, unshifted
     };
 
     float acc[kAcc][kNT][4] = {};
@@ -390,8 +386,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// mode: 0 = V0 (copy), 2 = V2, 3 = V3, 4 = V4, 7 = V7. x, y: bf16 [batch, nb,
-// 128]; w: bf16 [1, 128, 128] for V2, [3, 128, 128] for V3, V4, V7, unused by
+// mode: 0 = V0 (copy), 2 = V2, 3 = V3 (both in conv_variants_wgmma.cuh), 4 =
+// V4, 7 = V7. x, y: bf16 [batch, nb, 128]; w: bf16 [1, 128, 128] for V2, [3, 128, 128] for V3, V4, V7, unused by
 // V0; xp, xn: bf16 [batch, (nb / tb) * 8, 128] for V7, else unused. Every
 // pointer 16-byte aligned; tb > 0, tb % 8 == 0, nb % tb == 0. Returns 0 on
 // success, -1 for an unsupported configuration, otherwise the CUDA error
@@ -406,8 +402,8 @@ extern "C" int w2s_conv_variant(int mode, const void* x, const void* w, const vo
   if (mode == kCopy) return launch_copy(x, y, (size_t)batch * nb * kChunks, s);
   if (w == nullptr || !aligned16(w)) return -1;
   switch (mode) {
-    case kMm1: return launch<kMm1>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
-    case kMm3: return launch<kMm3>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
+    case kMm1: return wgmma_mm::launch<1>(xb, wb, yb, (long)batch * nb, s);
+    case kMm3: return wgmma_mm::launch<3>(xb, wb, yb, (long)batch * nb, s);
     case kMm3s: return launch<kMm3s>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
     case kV7:
       if (xp == nullptr || xn == nullptr || !aligned16(xp) || !aligned16(xn)) return -1;

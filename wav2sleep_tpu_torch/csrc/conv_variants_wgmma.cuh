@@ -1,0 +1,373 @@
+// V2 and V3 of the K1 bisection ladder on Hopper's wgmma and TMA, sm_90a.
+// Included by conv_variants.cu, which dispatches modes 2 and 3 here.
+//
+//   V2 (scripts/profile_pallas_variants.py:85, k_mm1f)  y = bf16(x @ W0)
+//   V3 (scripts/profile_pallas_variants.py:93, k_mm3)   y = bf16(x @ W0 + x @ W1 + x @ W2)
+//
+// x and y are [batch, nb, 128] bf16, W [taps, 128, 128] bf16 used as x @ W[j]
+// (K1's [taps, C_in, C_out]), f32 sums, one rounding to bf16. Both rungs are
+// row-wise, so x is taken as its flat [batch * nb, 128] rows and the
+// function's tile length tb plays no part.
+//
+// What bounds them on an H100 (SXM, 700 W, x [8, 153,600, 128]): bytes. x is
+// read once and y written once, 2 x 1,228,800 x 256 bytes, 0.1878 ms at 3.35
+// TB/s. V3 does 768 FLOPs a row for 256 bytes read (192 a byte, under the
+// ~295 where the bf16 tensor cores stop being bound by HBM): 0.122 ms at
+// 989 TFLOP/s; V2 a third of that. Measured on an H100 SXM at 700 W
+// (PERF.md), V2 runs at the copy's pace while V3's three products draw
+// the card's power limit, so its SM clock falls from 1.98 GHz to 1.4-1.8:
+// what is left between V3 and V2 is power, not the ring or the feed (a
+// ring of 4 to 10 stages and A from registers measured the same).
+//
+// Why V3 keeps three products: the ladder bisects K1, whose k = 3 conv runs
+// three products of shifted rows. Summing W0 + W1 + W2 first would make V3
+// V2 with other weights and tell nothing about K1's three taps, so V3 chains
+// its 3 x 8 k-steps into one f32 accumulator.
+//
+// What held the mma.sync versions of these rungs back (the variant_kernel
+// template of conv_variants.cu before this file; V2 0.2635, V3 0.4331 ms
+// back to back, 71% and 43% of the bound), and what this design does:
+// - Shared-memory reads. Each of 16 warps ldmatrix'ed its own 32 columns
+//   of B for every k-step of every 64-row item: ~576 KB of shared reads a
+//   V3 item, ~2.5 us at ~128 B/clock. Here wgmma reads B from shared memory
+//   once per warpgroup: 24 x 6 KB = 144 KB a V3 tile of 64 rows.
+// - Bytes in flight. The old ring had two slots and 168 KB of shared memory
+//   for one block, so one 16 KB item was in flight per SM. Here one
+//   producer thread keeps a ring of 6 (V3) or 8 (V2) stages of 16 KB full
+//   with TMA: up to 5 (7) tiles in flight per SM, and no thread spends
+//   registers or instructions on the copies.
+// - Stores. y went out in 16-byte stores after a __syncthreads(). Here each
+//   consumer warpgroup rounds its tile into its own y buffer and one thread
+//   stores it with a TMA tensor store, which runs while the warpgroup goes
+//   on to its next tile.
+//
+// Design (hopper-kernels guide section 1):
+// - Persistent blocks, one per SM (grid = min(SMs, tiles)), 384 threads: two
+//   consumer warpgroups and one producer warpgroup, of which one thread
+//   issues TMA. A tile is 64 rows (one wgmma M); local tile k of a block is
+//   tile blockIdx.x + k gridDim.x, in ring stage k % S, consumed by
+//   warpgroup k % 2 (S is even, so each warpgroup owns every other stage).
+//   The two warpgroups run on different tiles, so one's epilogue overlaps
+//   the other's products.
+// - x comes in through a 2-D tensor map over the [batch * nb, 128] rows,
+//   boxes of 64 channels x 64 rows with the 128-byte swizzle (128 bytes is
+//   the widest box row that swizzle takes, so a tile is two boxes). Each
+//   stage has a full mbarrier (one arrival with the tile's 16 KB of
+//   transactions) and an empty one (128 consumer arrivals). Rows past the
+//   end of x are zero-filled by TMA: no window or bounds in the kernel.
+// - The weights come in once per block, by TMA as well, as they lie: W[j] is
+//   [C_in][C_out] with C_out contiguous, i.e. wgmma's B [K][N] N-major, which
+//   16-bit wgmma reads with its transpose bit. A map over the [taps x 128,
+//   128] rows of W, boxes of 64 outputs x 128 inputs with the 128-byte
+//   swizzle, gives per tap two 16 KB halves of the outputs; the descriptor
+//   steps 16 KB between them (leading offset) and 1024 bytes between groups
+//   of 8 inputs (stride offset), and a k-step of 16 inputs adds 2048 bytes.
+//   Staging them with threads instead (a transposing copy, a load and 8
+//   two-byte stores per 16 bytes) cost a dependent round trip per 16 bytes
+//   per thread at the start of every block.
+// - wgmma.mma_async m64n128k16, A (K-major: the k-step of 16 channels adds
+//   32 bytes inside a 128-byte swizzle atom) and B from shared memory, f32
+//   accumulator of 64 registers a thread; the tile's first k-step has
+//   scale-d 0. fence / commit_group / wait_group 0 once per tile.
+// - Epilogue: after the stage is released, the warpgroup waits for its
+//   previous TMA store to have read its y buffer, writes its bf16x2 pairs
+//   with the same swizzle (conflict-free), fences the async proxy and one
+//   thread issues two TMA stores; TMA clips rows past the end of y.
+// - Shared memory: V3 6 x 16 KB ring + 2 x 16 KB y + 96 KB W = 224 KB (plus
+//   alignment and barriers, under the 227 KB limit); V2 8 x 16 KB + 32 KB +
+//   32 KB = 192 KB.
+// - Tensor maps are encoded on the host per call with
+//   cuTensorMapEncodeTiled, looked up through the runtime's
+//   cudaGetDriverEntryPointByVersion (no -lcuda), and passed as
+//   __grid_constant__ parameters.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace wgmma_mm {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 128;                      // channels in and out
+constexpr int kRows = 64;                    // rows per tile: one wgmma M
+constexpr int kBoxCols = 64;                 // channels per TMA box: 128 bytes, the swizzle's span
+constexpr int kBoxBytes = kRows * 128;       // one box of a tile, 8 KB
+constexpr int kTileBytes = 2 * kBoxBytes;    // 16 KB
+constexpr int kWHalfBytes = kD * 128;        // one tap's 64 outputs for all 128 inputs
+constexpr int kWTapBytes = 2 * kWHalfBytes;  // 32 KB
+constexpr int kConsumers = 2;                // warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+
+template <int TAPS>
+__host__ __device__ constexpr int stages() { return TAPS == 3 ? 6 : 8; }
+
+template <int TAPS>
+constexpr size_t smem_bytes() {
+  return 1024 /* alignment of the swizzled tiles */ + (size_t)(stages<TAPS>() + kConsumers) * kTileBytes +
+         (size_t)TAPS * kWTapBytes + 8 * (2 * stages<TAPS>() + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Generic-proxy writes to shared memory become visible to TMA and wgmma.
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Box (c0 = channel, c1 = row) of the map into shared memory at dst; its
+// bytes complete a transaction of the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :
+               : "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// This thread's TMA stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// This thread's TMA stores have completed.
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Shared-memory descriptor of an operand in the 128-byte swizzle (layout
+// type 1): start address, leading byte offset (K-major: unused; N-major:
+// between the 64-wide halves of N) and 1024 bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t leading = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(leading >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps reads of the accumulator after the wgmma wait that precedes it.
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, K-major) B (16 x 128, N-major), both bf16 from shared
+// memory, f32 sums; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// y = bf16(sum over TAPS taps of x @ W[j]) over n_tiles tiles of 64 rows.
+template <int TAPS>
+__global__ void __launch_bounds__(kThreads, 1)
+    mm_wgmma_kernel(__grid_constant__ const CUtensorMap x_map, __grid_constant__ const CUtensorMap y_map,
+                    __grid_constant__ const CUtensorMap w_map, int n_tiles) {
+  constexpr int S = stages<TAPS>();
+  static_assert(S % kConsumers == 0, "each consumer warpgroup owns every other stage");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t ring = smem_u32(base);
+  const uint32_t ys = ring + S * kTileBytes;
+  const uint32_t ws = ys + kConsumers * kTileBytes;
+  const uint32_t full = ws + TAPS * kWTapBytes;  // S mbarriers, S empty ones, the weights' one
+  const uint32_t empty = full + 8 * S;
+  const uint32_t w_full = empty + 8 * S;
+  const int tid = threadIdx.x, wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);
+    }
+    mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer: one thread issues every load
+    if (tid == kConsumers * 128) {
+      mbar_expect_tx(w_full, TAPS * kWTapBytes);
+      for (int j = 0; j < TAPS; ++j)
+        for (int h = 0; h < 2; ++h)
+          tma_load(ws + j * kWTapBytes + h * kWHalfBytes, &w_map, w_full, h * kBoxCols, j * kD);
+      for (int k = 0, tile = blockIdx.x; tile < n_tiles; ++k, tile += gridDim.x) {
+        const int s = k % S;
+        mbar_wait(empty + 8 * s, ((k / S) & 1) ^ 1);  // the first round finds every stage free
+        mbar_expect_tx(full + 8 * s, kTileBytes);
+        tma_load(ring + s * kTileBytes, &x_map, full + 8 * s, 0, tile * kRows);
+        tma_load(ring + s * kTileBytes + kBoxBytes, &x_map, full + 8 * s, kBoxCols, tile * kRows);
+      }
+    }
+    return;
+  }
+
+  mbar_wait(w_full, 0);
+  const int wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;  // accumulator rows warp * 16 + g (+ 8), columns 8i + 2tq (+ 1)
+  const uint32_t ybuf = ys + wg * kTileBytes;
+  float acc[64] = {};
+  for (int k = wg, tile = blockIdx.x + wg * gridDim.x; tile < n_tiles;
+       k += kConsumers, tile += kConsumers * gridDim.x) {
+    const int s = k % S;
+    mbar_wait(full + 8 * s, (k / S) & 1);
+    const uint32_t a = ring + s * kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t a_k = a + (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        const uint32_t b_k = ws + j * kWTapBytes + kk * 16 * 128;
+        wgmma_m64n128k16(acc, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), j + kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_operands(acc);
+    mbar_arrive(empty + 8 * s);
+
+    // Epilogue: the y buffer is free once this warpgroup's last store has read it.
+    if (wtid == 0) bulk_wait_read();
+    named_bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < kD / 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        const uint32_t addr = ybuf + (i / 8) * kBoxBytes + r * 128 + (((i % 8) ^ (r & 7)) << 4) + tq * 4;
+        const uint32_t pair = pack_bf16x2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pair) : "memory");
+      }
+    }
+    fence_async_shared();
+    named_bar_sync(1 + wg, 128);
+    if (wtid == 0) {
+      tma_store(&y_map, ybuf, 0, tile * kRows);
+      tma_store(&y_map, ybuf + kBoxBytes, kBoxCols, tile * kRows);
+      bulk_commit();
+    }
+  }
+  if (wtid == 0) bulk_wait();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+inline int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return -1;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A map over rows x 128 bf16, boxes of 64 channels x box_rows rows,
+// 128-byte swizzle; reads past the last row give zeros, writes there are
+// dropped.
+inline int row_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long rows, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {kD * sizeof(bf16)};
+  const cuuint32_t box[2] = {kBoxCols, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(rc);
+}
+
+template <int TAPS>
+int launch(const bf16* x, const bf16* w, bf16* y, long rows, cudaStream_t stream) {
+  if (rows < 1 || rows > (1L << 31) - 2 * kRows) return -1;  // TMA's row coordinate is an int
+  const int n_tiles = static_cast<int>((rows + kRows - 1) / kRows);
+  const void* kernel = reinterpret_cast<const void*>(mm_wgmma_kernel<TAPS>);
+  constexpr size_t smem = smem_bytes<TAPS>();
+  EncodeTiled encode = nullptr;
+  CUtensorMap x_map, y_map, w_map;
+  int dev = 0, sms = 0, rc = 0;
+  if ((rc = encode_tiled(&encode)) != 0 || (rc = row_map(encode, &x_map, x, rows, kRows)) != 0 ||
+      (rc = row_map(encode, &y_map, y, rows, kRows)) != 0 || (rc = row_map(encode, &w_map, w, TAPS * kD, kD)) != 0 ||
+      (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
+      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
+      (rc = static_cast<int>(
+           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) != 0)
+    return rc;
+  const int grid = n_tiles < sms ? n_tiles : sms;
+  mm_wgmma_kernel<TAPS><<<grid, kThreads, smem, stream>>>(x_map, y_map, w_map, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgmma_mm

@@ -1,5 +1,6 @@
 """The K1 bisection ladder: ``scripts/profile_pallas_variants.py``'s five
-Pallas kernels as CUDA C++ kernels for sm_90a (``csrc/conv_variants.cu``).
+Pallas kernels as CUDA C++ kernels for sm_90a (``csrc/conv_variants.cu``;
+V2 and V3 in ``csrc/conv_variants_wgmma.cuh``).
 
 The JAX script bisects the cost of the k=3 conv kernel at its hot shape
 (B = 8, 153,600 rows of 128 bf16 channels) by timing stripped-down
@@ -21,8 +22,16 @@ with f32 sums and one rounding of y to bf16:
 
 ``tb`` is the function's tile length (the JAX kernel's block of rows), not
 the CUDA kernel's tiling: V4's zero edges and V7's halo rows sit at every
-multiple of ``tb``. W uses K1's layout, ``[3, C_in, C_out]`` applied as
+multiple of ``tb``. V2 and V3 are row-wise, so ``tb`` is checked but plays
+no part in them. W uses K1's layout, ``[3, C_in, C_out]`` applied as
 ``x @ W[j]``.
+
+The kernels: V0 a vectorised copy; V2 and V3 Hopper's ``wgmma`` (B read
+from shared memory once per warpgroup) fed by a TMA ring over the flat
+``[B * nb, 128]`` rows, with TMA stores of y, in persistent blocks; V3 runs
+its three products into one f32 accumulator rather than summing the
+weights, since the ladder bisects K1's three taps. V4 and V7 share an
+``mma.sync`` template built from K1's own main loop.
 
 Like ``ops/conv_k3.py``: for CUDA tensors the wrappers launch the kernel and
 count it in ``LAUNCHES``; for CPU tensors they run the plain versions

@@ -5,13 +5,16 @@ sm_90a, into ``build/kernels/`` at the repository root, under a name that
 carries a hash of every file in ``csrc/`` and of the flags (an edit to the
 source or to a header it includes builds anew; an unchanged tree is
 reused). The caller loads it with ``ctypes``. Sources are independent, so
-several builds may run at once (one ``nvcc`` each).
+several builds may run at once (one ``nvcc`` each). ``ptxas_report`` reads
+nvcc's register and spill report per kernel, and ``sass_counts`` counts
+instructions per kernel in a built library's machine code (``sass``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,11 +50,12 @@ def library_path(source_name: str) -> Path:
 def compile_library(source_name: str) -> tuple[Path, str]:
     """Compile ``csrc/<source_name>`` unless its build is cached; returns
     the library's path and nvcc's output (the ptxas register and
-    shared-memory report; empty when the library came from the cache)."""
+    shared-memory report, kept beside the library for a cached build)."""
     source = CSRC / source_name
     lib_path = library_path(source_name)
+    log_path = lib_path.with_name(f'{lib_path.name}.log')
     if lib_path.exists():
-        return lib_path, ''
+        return lib_path, log_path.read_text() if log_path.exists() else ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f'{lib_path.name}.{os.getpid()}.tmp')
     proc = subprocess.run(
@@ -61,5 +65,37 @@ def compile_library(source_name: str) -> tuple[Path, str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed building {source_name} (exit {proc.returncode}):\n{log}')
+    log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, log
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of nvcc's ``-Xptxas -v`` output: its
+    registers, static shared memory and spilled bytes (stores + loads)."""
+    report = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r'Used (\d+) registers', chunk)
+        smem = re.search(r'(\d+) bytes smem', chunk)
+        spills = [int(v) for v in re.findall(r'(\d+) bytes spill (?:stores|loads)', chunk)]
+        report[name] = {'registers': int(regs.group(1)) if regs else 0,
+                        'smem_bytes': int(smem.group(1)) if smem else 0, 'spill_bytes': sum(spills)}
+    return report
+
+
+def sass(lib_path: Path) -> str:
+    """``cuobjdump -sass`` of a built library: its kernels' machine code."""
+    tool = Path(_nvcc()).resolve().with_name('cuobjdump')
+    proc = subprocess.run([str(tool), '-sass', str(lib_path)], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f'cuobjdump -sass {lib_path.name} failed (exit {proc.returncode}):\n{proc.stderr}')
+    return proc.stdout
+
+
+def sass_counts(listing: str, opcodes) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of a ``cuobjdump -sass`` listing: how many
+    of its instructions have each opcode (``HGMMA`` counts ``HGMMA.64x128x16...``)."""
+    parts = re.split(r'Function : (\S+)', listing)
+    return {name: {op: len(re.findall(rf'\b{op}\b', body)) for op in opcodes}
+            for name, body in zip(parts[1::2], parts[2::2])}

@@ -1,6 +1,6 @@
 """Bisect K1's cost on one NVIDIA card: the port of ``scripts/profile_pallas_variants.py``.
 
-    python -m wav2sleep_tpu_torch.profile_variants [--tb 2048] [--k 5] [--reps 3] [--device cuda]
+    python -m wav2sleep_tpu_torch.profile_variants [--tb 2048] [--k 5] [--reps 3] [--both] [--device cuda]
 
 Times the five rungs of ``ops/conv_variants.py`` at K1's hot shape (B = 8
 nights of 1,228,800 samples of 16 channels, packed as x [8, 153,600, 128]
@@ -16,8 +16,19 @@ bf16), each a hand-written kernel of ``csrc/conv_variants.cu``:
 
 Then it checks V7, with the true neighbours as halo rows, against K1
 (``conv_k3`` at 128 -> 128, stride 1) and times, on the same x and W,
-``k1_ms`` (K1) and ``conv1d_ms`` (``F.conv1d``, channels-first views of the
-same tensors, as ``chip_smoke.py`` times it).
+``k1_ms`` (K1), ``conv1d_ms`` (``F.conv1d``, channels-first views of the
+same tensors, as ``chip_smoke.py`` times it) and the one PyTorch call of
+V2's and of V3's function: ``matmul_ms`` (``torch.matmul(x, W0)``) and
+``einsum_ms`` (``torch.einsum('bnc,kco->bno', x, W)``, which sums W over
+the taps first). With ``--both`` (the card only; ``chip_smoke.py`` times
+its calls both ways itself and counts the launches of the marginal runs
+alone) it adds ``both_ms``: each of those calls timed as
+``bench_conv.both_ms`` does, [one call, back to back] in ms.
+
+For an A/B across versions of ``csrc/conv_variants.cu``: it uses only
+functions the package has had since the ladder was ported, so a copy of
+this file placed in an older checkout's package times that checkout's
+kernels. Run the versions in one call, in the order A, B, B, A.
 
 The inputs are the JAX script's: ``np.random.default_rng(0)``, x drawn
 first, then W x 0.1, both rounded to bf16. Each time is the JAX script's
@@ -48,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .bench_conv import both_ms
 from .ops import conv_k3 as k1
 from .ops import conv_variants as cv
 from .utils import card_line, resolve_device
@@ -103,13 +115,16 @@ def timeit(fn, k: int, reps: int, device: torch.device) -> float:
 
 
 def run(B: int = 8, nb: int = 153_600, tb: int = 2048, k: int = 5, reps: int = 3, device=None,
-        xw: tuple[torch.Tensor, torch.Tensor] | None = None) -> dict:
-    """Time the ladder, K1 and ``F.conv1d``; print and return the results.
-    ``xw``: x and W to time on, on ``device`` (default ``inputs(B, nb)``)."""
+        xw: tuple[torch.Tensor, torch.Tensor] | None = None, both: bool = False) -> dict:
+    """Time the ladder, K1, ``F.conv1d`` and V2's and V3's library calls;
+    print and return the results. ``xw``: x and W to time on, on ``device``
+    (default ``inputs(B, nb)``); ``both``: also time each call both ways."""
     dev = resolve_device(device)
     if k < 2 or reps < 1:
         raise ValueError(f'profile_variants: k={k} must be >= 2 and reps={reps} >= 1')
     on_card = dev.type == 'cuda'
+    if both and not on_card:
+        raise ValueError('profile_variants: both=True times with CUDA events and needs the card')
     if on_card:
         print(f'nvidia-smi: {card_line()}', flush=True)
     x, w = inputs(B, nb, dev) if xw is None else xw
@@ -136,9 +151,17 @@ def run(B: int = 8, nb: int = 153_600, tb: int = 2048, k: int = 5, reps: int = 3
         if not ok:
             raise AssertionError(f'profile_variants: V7 with true halos is not K1 (max |d| {err:.3e})')
         results['v7_vs_k1_max_abs_err'] = err
-        results['k1_ms'] = timeit(lambda: k1.conv_k3(x, w), k, reps, dev)
         w_oik = w.permute(2, 1, 0).contiguous()
-        results['conv1d_ms'] = timeit(lambda: F.conv1d(x.transpose(1, 2), w_oik, None, padding=1), k, reps, dev)
+        others = {
+            'k1_ms': lambda: k1.conv_k3(x, w),
+            'conv1d_ms': lambda: F.conv1d(x.transpose(1, 2), w_oik, None, padding=1),
+            'matmul_ms': lambda: torch.matmul(x, w0),
+            'einsum_ms': lambda: torch.einsum('bnc,kco->bno', x, w),
+        }
+        for key, fn in others.items():
+            results[key] = timeit(fn, k, reps, dev)
+        if both:
+            results['both_ms'] = {key: list(both_ms(fn)) for key, fn in {**rungs, **others}.items()}
     print(json.dumps(results), flush=True)
     return results
 
@@ -148,9 +171,10 @@ def main(argv=None) -> None:
     parser.add_argument('--tb', type=int, default=2048)
     parser.add_argument('--k', type=int, default=5)
     parser.add_argument('--reps', type=int, default=3)
+    parser.add_argument('--both', action='store_true', help='also time each call both ways (the card only)')
     parser.add_argument('--device', default=None, help='default: the card (cuda)')
     args = parser.parse_args(argv)
-    run(tb=args.tb, k=args.k, reps=args.reps, device=args.device)
+    run(tb=args.tb, k=args.k, reps=args.reps, device=args.device, both=args.both)
 
 
 if __name__ == '__main__':
