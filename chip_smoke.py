@@ -890,27 +890,40 @@ def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
 # (B = 8 ten-hour nights of 16 channels at 1,228,800 samples, 128 lanes).
 VARIANT_B, VARIANT_NB, VARIANT_TB = 8, 153_600, 2048
 VARIANT_REPLACES = {'copy': 79, 'mm1f': 85, 'mm3': 93, 'mm3s': 106, 'v7': 136}
-# V2's and V3's kernels (csrc/conv_variants_wgmma.cuh) by a part of their
-# mangled names, and the SASS opcodes of wgmma, TMA loads and TMA stores.
-WGMMA_KERNELS = {'mm1f': 'mm_wgmma_kernelILi1E', 'mm3': 'mm_wgmma_kernelILi3E'}
-WGMMA_OPCODES = ('HGMMA', 'UTMALDG', 'UTMASTG')
+# Each rung's kernel by a part of its mangled name, and the SASS opcodes
+# that prove its route, each with the count it must have (None: at least
+# one): V2, V3 and V4 (csrc/conv_variants_wgmma.cuh) wgmma (HGMMA), TMA
+# loads (UTMALDG) and stores (UTMASTG); V0 (csrc/conv_variants.cu) one
+# 16-byte load and one store (LDG.E.128, STG.E.128), a vector per thread
+# and no loop.
+WGMMA_OPCODES = dict.fromkeys(('HGMMA', 'UTMALDG', 'UTMASTG'))
+SASS_EVIDENCE = {'copy': ('copy_kernel', {'LDG.E.128': 1, 'STG.E.128': 1}),
+                 'mm1f': ('mm_wgmma_kernelILi1E', WGMMA_OPCODES), 'mm3': ('mm_wgmma_kernelILi3E', WGMMA_OPCODES),
+                 'mm3s': ('mm_wgmma_kernelILi4E', WGMMA_OPCODES)}
+VARIANT_SOURCES = {'copy': 'conv_variants.cu', 'mm1f': 'conv_variants_wgmma.cuh', 'mm3': 'conv_variants_wgmma.cuh',
+                   'mm3s': 'conv_variants_wgmma.cuh', 'v7': 'conv_variants.cu'}
 
 
-def wgmma_evidence(cv, cuda_build) -> dict:
-    """Per V2/V3 wrapper: its kernel's HGMMA, UTMALDG and UTMASTG counts in
-    the SASS of the built library and ptxas's registers and spilled bytes;
-    raises unless each kernel has all three opcodes."""
-    counts = cuda_build.sass_counts(cuda_build.sass(cuda_build.library_path('conv_variants.cu')), WGMMA_OPCODES)
+def sass_evidence(cv, cuda_build) -> dict:
+    """Per V0, V2, V3 and V4 wrapper: its kernel's counts of the opcodes of
+    its route in the SASS of the built library and ptxas's registers and
+    spilled bytes; raises unless each kernel has every opcode of its route,
+    as many times as the route says."""
+    opcodes = sorted({op for _, ops in SASS_EVIDENCE.values() for op in ops})
+    counts = cuda_build.sass_counts(cuda_build.sass(cuda_build.library_path('conv_variants.cu')), opcodes)
     ptxas = cuda_build.ptxas_report(cv.BUILD_LOG)
     evidence = {}
-    for name, key in WGMMA_KERNELS.items():
+    for name, (key, route) in SASS_EVIDENCE.items():
         found = [fn for fn in counts if key in fn]
         if len(found) != 1 or found[0] not in ptxas:
             raise AssertionError(f'variants: no single {key} kernel in the SASS ({found}) with a ptxas report')
-        fn, ops = found[0], counts[found[0]]
+        fn, ops = found[0], {op: counts[found[0]][op] for op in route}
         if min(ops.values()) < 1:
-            raise AssertionError(f'variants: {name}\'s kernel lacks wgmma or TMA in its SASS: {ops}')
-        evidence[name] = {**{f'sass_{op.lower()}': n for op, n in ops.items()},
+            raise AssertionError(f'variants: {name}\'s kernel lacks an opcode of its route in its SASS: {ops}')
+        exact = {op: want for op, want in route.items() if want is not None}
+        if any(ops[op] != want for op, want in exact.items()):
+            raise AssertionError(f'variants: {name}\'s kernel has {ops} in its SASS; its route needs {exact}')
+        evidence[name] = {**{f'sass_{op.lower().replace(".", "_")}': n for op, n in ops.items()},
                           'registers': ptxas[fn]['registers'], 'spill_bytes': ptxas[fn]['spill_bytes']}
         log(f'variants: {name} kernel {fn}: SASS ' + ', '.join(f'{op} {n}' for op, n in ops.items())
             + f'; ptxas {ptxas[fn]["registers"]} registers, {ptxas[fn]["spill_bytes"]} bytes spilled')
@@ -941,7 +954,7 @@ def variant_library_calls(torch, F, x, w, tb):
 def phase_variants(torch, F, k1, cv, cuda_build, profile_variants):
     """Phase 10: the K1 bisection ladder; returns its kernels-line entries."""
     B, nb, tb, D = VARIANT_B, VARIANT_NB, VARIANT_TB, cv.D
-    evidence = wgmma_evidence(cv, cuda_build)
+    evidence = sass_evidence(cv, cuda_build)
     x, w = profile_variants.inputs(B, nb, 'cuda')
     cv.LAUNCHES.update(dict.fromkeys(cv.NAMES, 0))
     prof = profile_variants.run(B, nb, tb, xw=(x, w))
@@ -1015,7 +1028,7 @@ def phase_variants(torch, F, k1, cv, cuda_build, profile_variants):
             f'of the bound')
         entries.append(dict(
             name=f'conv_variants.{name}', route='cuda',
-            source='wav2sleep_tpu_torch/csrc/' + ('conv_variants_wgmma.cuh' if name in evidence else 'conv_variants.cu'),
+            source='wav2sleep_tpu_torch/csrc/' + VARIANT_SOURCES[name],
             replaces=f'scripts/profile_pallas_variants.py:{VARIANT_REPLACES[name]}', launches=launches[name],
             max_abs_err=errs[name], ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1], library_call_ms=lib_ms[1],
@@ -1091,8 +1104,9 @@ def main() -> int:
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
              max_abs_err=k3_err, **k3_line),
         # The five profiling variants: phase 10, x [8, 153,600, 128] bf16,
-        # tb 2048; launches: the profile_variants run; V2 and V3 also carry
-        # their SASS counts of HGMMA, UTMALDG, UTMASTG and ptxas registers.
+        # tb 2048; launches: the profile_variants run; V0, V2, V3 and V4 also
+        # carry their SASS counts (LDG.E.128, STG.E.128; HGMMA, UTMALDG,
+        # UTMASTG) and ptxas registers.
         *variant_lines,
     ]
     log(f'nvidia-smi: {card}')

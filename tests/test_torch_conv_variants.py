@@ -172,7 +172,7 @@ def test_profile_run_prints_the_jax_keys(capsys):
     out = profile_variants.run(B=1, nb=48, tb=16, k=2, reps=1, device='cpu')
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     keys = ('copy_ms', 'mm1_f32acc_ms', 'mm3_ms', 'mm3_shift_ms', 'v7_full_ms', 'bound_ms', 'k1_ms', 'conv1d_ms',
-            'matmul_ms', 'einsum_ms')
+            'tensor_copy_ms', 'tensor_copy_fresh_ms', 'matmul_ms', 'einsum_ms')
     assert line == out and all(isinstance(line[k], float) for k in keys) and 'both_ms' not in line
     assert line['device'] == 'cpu' and line['shape'] == 'B=1 nb=48 D=128 TB=16 bf16'
     assert not any('parsem' in k for k in line)
@@ -222,39 +222,63 @@ def test_library_calls_compute_the_functions(name, tb):
         assert ok, err
 
 
-def _wgmma_listing(v2_ops: str) -> tuple[str, str]:
-    """A ptxas report and a SASS listing of the V2 and V3 kernels, V2's body
-    ``v2_ops``."""
-    names = {n: f'_ZN8wgmma_mm15mm_wgmma_kernelILi{n}EEEv14CUtensorMap_stS1_PK13__nv_bfloat16i' for n in (1, 3)}
-    ptxas = ''.join(f"ptxas info    : Compiling entry function '{names[n]}' for 'sm_90a'\n"
-                    f'    0 bytes stack frame, {4 * (n == 3)} bytes spill stores, 0 bytes spill loads\n'
-                    f'ptxas info    : Used {80 + n} registers, used 1 barriers\n' for n in (1, 3))
-    v3_ops = 'UTMALDG.2D [UR8], [UR4] ;\n' + 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;\n' * 24 + \
-        'UTMASTG.2D [UR4], [UR6] ;\n'
-    sass = ''.join(f'\t\tFunction : {names[n]}\n{ops}' for n, ops in ((1, v2_ops), (3, v3_ops)))
+# Mangled names of the kernels that phase 10 reads the SASS of, by rung.
+_KERNELS = {
+    'copy': '_ZN49_GLOBAL__N__c51223d3_16_conv_variants_cu_22afb78011copy_kernelEPKhPhm',
+    **{name: f'_ZN8wgmma_mm15mm_wgmma_kernelILi{n}EEEv14CUtensorMap_stS1_iNS_7FastDivE'
+       for name, n in (('mm1f', 1), ('mm3', 3), ('mm3s', 4))},
+}
+_OPS = {'HGMMA': 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n', 'UTMALDG': 'UTMALDG.2D [UR8], [UR4] ;\n',
+        'UTMASTG': 'UTMASTG.2D [UR4], [UR6] ;\n', 'LDG.E.128': 'LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n',
+        'STG.E.128': 'STG.E.128 desc[UR4][R6.64], R4 ;\n'}
+# Each kernel's opcodes, as counts: V0 one 16-byte load and store, V2 8
+# wgmma k-steps, V3 and V4 24.
+_COUNTS = {'copy': {'LDG.E.128': 1, 'STG.E.128': 1}, 'mm1f': {'HGMMA': 8, 'UTMALDG': 4, 'UTMASTG': 2},
+           'mm3': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2}, 'mm3s': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2}}
+
+
+def _sass_listing(missing: tuple[str, str] | None, extra: tuple[str, str] | None = None) -> tuple[str, str]:
+    """A ptxas report and a SASS listing of V0's, V2's, V3's and V4's
+    kernels, without ``missing`` = (rung, opcode) and with one more
+    ``extra``."""
+    ptxas = ''.join(f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+                    f'    0 bytes stack frame, {4 * (name == "mm3")} bytes spill stores, 0 bytes spill loads\n'
+                    f'ptxas info    : Used {80 + i} registers, used 1 barriers\n'
+                    for i, (name, fn) in enumerate(_KERNELS.items()))
+    sass = ''.join(f'\t\tFunction : {fn}\n' + ''.join(
+        _OPS[op] * (n + ((name, op) == extra)) for op, n in _COUNTS[name].items() if (name, op) != missing)
+        for name, fn in _KERNELS.items())
     return ptxas, sass
 
 
-@pytest.mark.parametrize('missing', [None, 'HGMMA', 'UTMALDG', 'UTMASTG'])
+@pytest.mark.parametrize('missing', [None, 'HGMMA', 'UTMALDG', 'UTMASTG', 'mm3s:HGMMA', 'mm3s:UTMALDG',
+                                     'mm3s:UTMASTG', 'copy:LDG.E.128', 'copy:STG.E.128', 'copy:LDG.E.128+',
+                                     'copy:STG.E.128+'])
 def test_chip_smoke_requires_wgmma_and_tma_in_the_sass(monkeypatch, missing):
-    """Phase 10's proof that V2 and V3 run on wgmma and TMA: the counts and
-    ptxas's registers join their kernels-line entries, and a kernel without
-    one of the three opcodes fails the run."""
+    """Phase 10's proof of each rung's route: V2, V3 and V4 on wgmma and
+    TMA, V0 on one 16-byte load and store (a vector per thread, no loop).
+    The counts and ptxas's registers join their kernels-line entries, and a
+    kernel without one of its opcodes fails the run (``missing``: an opcode
+    V2 lacks, or rung:opcode), as does a V0 with a second load or store
+    (rung:opcode+)."""
     smoke = _chip_smoke()
     from wav2sleep_tpu_torch.ops import cuda_build
 
-    v2 = {'HGMMA': 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n', 'UTMALDG': 'UTMALDG.2D [UR8], [UR4] ;\n',
-          'UTMASTG': 'UTMASTG.2D [UR4], [UR6] ;\n'}
-    ptxas, sass = _wgmma_listing(''.join(v for op, v in v2.items() if op != missing))
+    gap = None if missing is None else tuple(missing.split(':')) if ':' in missing else ('mm1f', missing)
+    extra = gap is not None and gap[1].endswith('+')
+    ptxas, sass = _sass_listing(None, (gap[0], gap[1][:-1])) if extra else _sass_listing(gap)
     monkeypatch.setattr(cv, 'BUILD_LOG', ptxas)
     monkeypatch.setattr(cuda_build, 'sass', lambda path: sass)
     if missing:
-        with pytest.raises(AssertionError, match='lacks wgmma or TMA'):
-            smoke.wgmma_evidence(cv, cuda_build)
+        error = "has .* in its SASS; its route needs" if extra else "lacks an opcode of its route"
+        with pytest.raises(AssertionError, match=f"{gap[0]}'s kernel {error}"):
+            smoke.sass_evidence(cv, cuda_build)
         return
-    assert smoke.wgmma_evidence(cv, cuda_build) == {
-        'mm1f': {'sass_hgmma': 1, 'sass_utmaldg': 1, 'sass_utmastg': 1, 'registers': 81, 'spill_bytes': 0},
-        'mm3': {'sass_hgmma': 24, 'sass_utmaldg': 1, 'sass_utmastg': 1, 'registers': 83, 'spill_bytes': 4},
+    assert smoke.sass_evidence(cv, cuda_build) == {
+        'copy': {'sass_ldg_e_128': 1, 'sass_stg_e_128': 1, 'registers': 80, 'spill_bytes': 0},
+        'mm1f': {'sass_hgmma': 8, 'sass_utmaldg': 4, 'sass_utmastg': 2, 'registers': 81, 'spill_bytes': 0},
+        'mm3': {'sass_hgmma': 24, 'sass_utmaldg': 8, 'sass_utmastg': 2, 'registers': 82, 'spill_bytes': 4},
+        'mm3s': {'sass_hgmma': 24, 'sass_utmaldg': 8, 'sass_utmastg': 2, 'registers': 83, 'spill_bytes': 0},
     }
 
 

@@ -260,6 +260,22 @@ def test_k3_matches_plain(card):
         torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize('thr', [2.5, 3.0, 5.0])
+def test_k3_matches_plain_at_other_outlier_thresholds(card, thr):
+    """K3 away from the default threshold 4: its sqrt-free chain compares
+    d**2 with thr**2 m, bit for bit the clipped form only where thr**2 is a
+    power of two. The clip, floor and length rows in one launch, atol 1e-4
+    against the plain version on the card, as at thr 4."""
+    xs, fss = _k3_rows(card)
+    before = ema_norm.LAUNCHES
+    got = ema_norm.ema_normalize(xs, fss, baseline_tau_seconds=120.0, outlier_threshold_sigma=thr)
+    assert ema_norm.LAUNCHES == before + 1
+    want = ema_norm.ema_normalize_reference(xs, fss, baseline_tau_seconds=120.0, outlier_threshold_sigma=thr)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, e, rtol=0, atol=1e-4)
+
+
 def _k3_rows(device):
     """The rows of tests/test_torch_ema.py's clip, floor and length cases, one group each, made
     the same way: a spike of 25 every 250-400 samples (the clip binds),
@@ -439,9 +455,14 @@ def test_transport_forwards_match_the_cpu(card, kind):
 # the ring). Then for V2 and V3, which tile the flat [B nb, 128] rows: fewer
 # rows than one tile; tiles that span two batch rows; and 10,240 tiles,
 # ~78 per block, each block's two consumers going round their ring 10 (V2)
-# to 13 (V3) times.
+# to 13 (V3) times. Then for V4, whose tiles write 62 rows and read one more
+# on each side: tile edges inside the function's tiles of 128 rows; nb a
+# multiple of neither 64 nor 62 (also a copy of 6.6 of V0's 32 KB chunks);
+# and tb 8, an edge on every eighth row, over 1,033 tiles, more than two per
+# warpgroup of every block.
 VARIANT_CASES = [(1, 8, 13), (2, 8, 13), (1, 16, 7), (2, 16, 5), (1, 24, 5), (2, 24, 11), (1, 2048, 3),
-                 (2, 2048, 2), (4, 24, 2000), (1, 8, 1), (3, 8, 5), (8, 2048, 40)]
+                 (2, 2048, 2), (4, 24, 2000), (1, 8, 1), (3, 8, 5), (8, 2048, 40), (1, 128, 4), (3, 40, 7),
+                 (4, 8, 2000)]
 
 
 def _variant_inputs(B, tb, n_t, device, seed, w_scale=0.1):

@@ -69,6 +69,20 @@ def test_matches_pallas_interpret(port_out, case):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize('thr', [2.5, 3.0, 4.0, 5.0])
+def test_matches_pallas_interpret_at_outlier_thresholds(thr):
+    """Away from the default 4 (thr**2 16, a power of two, where the plain
+    version's sqrt-free clip is bit for bit the clipped form), on the rows
+    with spikes of 25, where the clip binds: atol 1e-4, as above."""
+    x, fs, btau, block = _rows('clip_binds')
+    (got,) = ema_norm.ema_normalize_reference([torch.from_numpy(x)], [fs], baseline_tau_seconds=btau,
+                                              outlier_threshold_sigma=thr)
+    want = np.asarray(ema_normalize_pallas(x, fs, baseline_tau_seconds=btau, outlier_threshold_sigma=thr,
+                                           block=block, interpret=True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize('case', CASES)
 def test_matches_host_f64(port_out, case):
     x, fs, btau, _ = _rows(case)

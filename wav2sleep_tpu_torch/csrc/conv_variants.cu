@@ -21,11 +21,10 @@
 // cores (989 TFLOP/s) stop being bound by HBM (3.35 TB/s). So all five are
 // bound by bytes, provided the products run on the tensor cores.
 //
-// Design. V0 is a 16-byte vectorised grid-stride copy. V2 and V3 are
-// Hopper's wgmma fed by TMA, in conv_variants_wgmma.cuh (its own note says
-// why). V4 and V7 are one template over the mode, built from the parts of
-// K1's bf16 main loop (conv_k3.cu, conv_k3_mma_kernel at 128 -> 128), so
-// that they bisect K1's own design:
+// Design. V0 is a plain vector copy (below). V2, V3 and V4 are Hopper's wgmma
+// fed by TMA, in conv_variants_wgmma.cuh (its own note says why). V7 is
+// built from the parts of K1's bf16 main loop (conv_k3.cu,
+// conv_k3_mma_kernel at 128 -> 128), so that it bisects K1's own design:
 // - mma.sync m16n8k16 fed by ldmatrix, f32 accumulators; 16 warps, 4 in M
 //   (16 rows each) x 4 in N (32 columns each): one pass of 64 rows is one
 //   item.
@@ -37,16 +36,6 @@
 //   item's rows in flight while this one computes), zero outside [0, nb).
 // - y is rounded to bf16 once, staged in shared memory and written in
 //   16-byte vectors.
-// The two modes differ only where the ladder asks them to:
-// - V4 reads the item's 64 rows unshifted (window rows 1..64), keeps three
-//   accumulators and shifts two of them on the f32 OUTPUT side. A shift of
-//   one row crosses the mma fragments' rows (and warps), so it goes
-//   through an f32 exchange buffer in shared memory: x @ W0 is
-//   written one row down, read back and added (0 at the function's tile
-//   edges), then x @ W2 one row up. The products of the rows just outside
-//   the item (t0 - 1 with W0, t0 + 64 with W2) belong to other items, so
-//   the first and the last warps in M each run one more m16 tile on the
-//   tensor cores, every A row of it that staged neighbour row.
 // - V7 shifts on the bf16 INPUT side, as K1 does: tap j of output row i
 //   reads staged row i + j through the lane's ldmatrix address, one
 //   accumulator; at an edge of the function's tiles (row % tb == 0 for tap
@@ -54,6 +43,17 @@
 //   (row 8t of xp or xn) instead. The function's tile edges may fall
 //   anywhere in an item: tb and the 64-row item need not divide each other.
 //   Divisions by tb are a multiply and a shift (FastDiv).
+//
+// V0, the copy: one 16-byte vector per thread (the widest load and store
+// a thread has on sm_90a), blocks of 1024 threads, one block per 16 KB of
+// x, no loop. Measured on an H100 SXM at 700 W (PERF.md), every
+// persistent design ran 5-22% slower than Tensor.copy_ (the runtime's
+// device-to-device copy), which reaches 89% of the bound: the grid-stride
+// loop of 16-byte vectors this kernel replaces, contiguous spans per block,
+// streaming cache hints, L2 prefetch hints, and TMA bulk copies
+// (cp.async.bulk) through a ring in shared memory in every chunk size,
+// ring depth and chunk order tried. Short-lived blocks of single vectors,
+// issued in order by the block scheduler, reach copy_'s rate.
 //
 // Plain C interface, loaded with ctypes; see ops/conv_variants.py.
 
@@ -68,12 +68,12 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using wgmma_mm::FastDiv;
 
 constexpr int kD = 128;                 // channels in and out
 constexpr int kTile = 64;               // rows per item: 4 warps in M x 16
 constexpr int kThreads = 512;           // 16 warps
 constexpr int kWarpsN = 4;              // warps across the 128 columns
-constexpr int kWarpsM = kThreads / 32 / kWarpsN;  // 4: 16 rows each
 constexpr int kWarpCols = kD / kWarpsN; // 32: four n8 tiles
 constexpr int kNT = kWarpCols / 8;
 constexpr int kPitch = kD + 8;          // bf16 per staged row: 272 bytes = 16 x 17
@@ -84,18 +84,14 @@ constexpr int kWin = kTile + 2;         // staged window: rows t0 - 1 .. t0 + kT
 // meet 64 rows, at tb >= 8.
 constexpr int kHalo = kTile / 8 + 1;
 constexpr int kSlotRows = kWin + 2 * kHalo;
-constexpr int kExPitch = kD + 4;        // f32 exchange row (V4)
-constexpr int kCopyUnroll = 4;
-
-enum Mode { kCopy = 0, kMm1 = 2, kMm3 = 3, kMm3s = 4, kV7 = 7 };
 constexpr int kTaps = 3;
 
-// Weights, two ring slots, the y tile, and for V4 the f32 exchange rows.
-template <int MODE>
-constexpr size_t smem_bytes() {
-  return 2 * ((size_t)kTaps * kD * kPitch + 2 * (size_t)kSlotRows * kPitch + (size_t)kTile * kPitch) +
-         (MODE == kMm3s ? 4 * (size_t)kWin * kExPitch : 0);
-}
+constexpr int kCopyThreads = 1024;     // V0: 16-byte vectors per block
+
+enum Mode { kCopy = 0, kMm1 = 2, kMm3 = 3, kMm3s = 4, kV7 = 7 };
+
+// V7's weights, two ring slots and the y tile.
+constexpr size_t kV7Smem = 2 * ((size_t)kTaps * kD * kPitch + 2 * (size_t)kSlotRows * kPitch + (size_t)kTile * kPitch);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -130,45 +126,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// V0: n 16-byte vectors, kCopyUnroll loads in flight per thread.
-__global__ void __launch_bounds__(256) copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, size_t n) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (; i + (kCopyUnroll - 1) * stride < n; i += kCopyUnroll * stride) {
-    uint4 v[kCopyUnroll];
-#pragma unroll
-    for (int u = 0; u < kCopyUnroll; ++u) v[u] = x[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < kCopyUnroll; ++u) y[i + u * stride] = v[u];
-  }
-  for (; i < n; i += stride) y[i] = x[i];
+// V0: y = x over n 16-byte vectors, one a thread.
+__global__ void __launch_bounds__(kCopyThreads) copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+                                                            size_t n) {
+  const size_t i = (size_t)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i < n) y[i] = x[i];
 }
 
-// n / d for 0 <= n < 2^31 by a multiply and a shift (CUTLASS's FastDivmod):
-// tb is a kernel argument, and an integer division by it costs tens of
-// instructions, enough to show on the ladder's rungs.
-struct FastDiv {
-  int d;
-  uint32_t mul, shr;
-  __device__ __forceinline__ int div(int n) const {
-    return static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >> shr);
-  }
-};
-
-FastDiv make_fast_div(int d) {  // d >= 2
-  int log2 = 31 - __builtin_clz(static_cast<unsigned>(d));
-  log2 += (d & (d - 1)) != 0;
-  const unsigned p = 31 + log2;
-  return {d, static_cast<uint32_t>(((1ull << p) + d - 1) / d), p - 32};
-}
-
-// V4, V7. Persistent: block k walks items blockIdx.x + k gridDim.x,
+// V7. Persistent: block k walks items blockIdx.x + k gridDim.x,
 // item = b * n_tiles + t0 / kTile.
-template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ xp,
     const bf16* __restrict__ xn, bf16* __restrict__ y, int batch, int nb, FastDiv tb) {
-  constexpr int kAcc = MODE == kMm3s ? 3 : 1;
   const int n_tiles = (nb + kTile - 1) / kTile;
   const int n_items = batch * n_tiles;
   const int n_fn = tb.div(nb);  // the function's tiles per batch row
@@ -178,11 +147,10 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
   bf16* ws = reinterpret_cast<bf16*>(smem);
   bf16* slots = ws + kTaps * kD * kPitch;
   bf16* ys = slots + 2 * kSlotRows * kPitch;
-  float* ex = reinterpret_cast<float*>(ys + kTile * kPitch);
 
   // Staged rows of item into slot: the window (window row r is x[t0 - 1 + r],
-  // zero outside [0, nb)), then for V7 row 8f of xp and of xn for the
-  // function's tiles f = t0 / tb, ... that the item's rows meet.
+  // zero outside [0, nb)), then row 8f of xp and of xn for the function's
+  // tiles f = t0 / tb, ... that the item's rows meet.
   auto load = [&](int item, int slot) {
     const int b = item / n_tiles;
     const int t0 = (item - b * n_tiles) * kTile;
@@ -194,17 +162,15 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
       const bool ok = t >= 0 && t < nb;
       cp_async16(smem_u32(dst + r * kPitch + cc * 8), ok ? xb + t * kD + cc * 8 : x, ok ? 16 : 0);
     }
-    if constexpr (MODE == kV7) {
-      const int f0 = tb.div(t0);
-      const int nh = tb.div(min(t0 + kTile, nb) - 1) - f0 + 1;  // <= kHalo
+    const int f0 = tb.div(t0);
+    const int nh = tb.div(min(t0 + kTile, nb) - 1) - f0 + 1;  // <= kHalo
 #pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const bf16* src = (side ? xn : xp) + ((size_t)b * n_fn + f0) * 8 * kD;
-        for (int q = tid; q < nh * kChunks; q += kThreads) {
-          const int h = q / kChunks, cc = q % kChunks;
-          cp_async16(smem_u32(dst + (kWin + side * kHalo + h) * kPitch + cc * 8),
-                     src + (size_t)h * 8 * kD + cc * 8, 16);
-        }
+    for (int side = 0; side < 2; ++side) {
+      const bf16* src = (side ? xn : xp) + ((size_t)b * n_fn + f0) * 8 * kD;
+      for (int q = tid; q < nh * kChunks; q += kThreads) {
+        const int h = q / kChunks, cc = q % kChunks;
+        cp_async16(smem_u32(dst + (kWin + side * kHalo + h) * kPitch + cc * 8),
+                   src + (size_t)h * 8 * kD + cc * 8, 16);
       }
     }
   };
@@ -238,31 +204,20 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
 
     // Staged row that tap j of the lane's row reads.
     auto a_row = [&](int j) -> int {
-      if constexpr (MODE == kV7) {
-        const int r = t0 + arow;
-        if (r < nb && j != 1) {
-          const int f = tb.div(r), rem = r - f * tb.d;
-          if (j == 0 && rem == 0) return kWin + f - tb.div(t0);
-          if (j == 2 && rem == tb.d - 1) return kWin + kHalo + f - tb.div(t0);
-        }
-        return arow + j;
+      const int r = t0 + arow;
+      if (r < nb && j != 1) {
+        const int f = tb.div(r), rem = r - f * tb.d;
+        if (j == 0 && rem == 0) return kWin + f - tb.div(t0);
+        if (j == 2 && rem == tb.d - 1) return kWin + kHalo + f - tb.div(t0);
       }
-      return arow + 1;  // V4: the item's own row, unshifted
+      return arow + j;
     };
 
-    float acc[kAcc][kNT][4] = {};
+    float acc[kNT][4] = {};
 #pragma unroll
     for (int j = 0; j < kTaps; ++j) {
       const uint32_t a_tap = xs_a + a_row(j) * kPitchB + a_k;
       const uint32_t b_tap = ws_a + j * kD * kPitchB + b_lane;
-      float(&c)[kNT][4] = acc[kAcc == 3 ? j : 0];
-      // V4: the products of the rows just outside the item belong to other
-      // items; the first warps in M also take x[t0 - 1] @ W0 and the last
-      // x[t0 + kTile] @ W2, with that row as every A row of one more m16 tile.
-      const bool edge = kAcc == 3 && (j == 0 ? wm == 0 : j == 2 && wm == kWarpsM - 1);
-      const int edge_row = j == 0 ? 0 : kWin - 1;
-      const uint32_t e_tap = xs_a + edge_row * kPitchB + a_k;
-      float e[kNT][4] = {};
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         uint32_t bf[kNT / 2][4];
@@ -271,61 +226,17 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
         uint32_t af[4];
         ldmatrix_x4(af, a_tap + kk * 32);
 #pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_bf16(c[ni], af, bf[ni / 2][2 * (ni & 1)], bf[ni / 2][2 * (ni & 1) + 1]);
-        if (edge) {
-          ldmatrix_x4(af, e_tap + kk * 32);
-#pragma unroll
-          for (int ni = 0; ni < kNT; ++ni) mma_bf16(e[ni], af, bf[ni / 2][2 * (ni & 1)], bf[ni / 2][2 * (ni & 1) + 1]);
-        }
-      }
-      if (edge && g == 0) {
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni)
-          *reinterpret_cast<float2*>(ex + edge_row * kExPitch + n0 + ni * 8 + 2 * tq) = make_float2(e[ni][0], e[ni][1]);
-      }
-    }
-
-    if constexpr (MODE == kMm3s) {
-      // The shift on the f32 outputs: ex[i + 1] holds item row i's product,
-      // ex[0] and ex[kWin - 1] the edge rows' (written above). Tap 0 is read
-      // back from ex[i] (row i - 1's product), tap 2 from ex[i + 2]; each is
-      // added as 0 at the function's tile edges.
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) {
-          const int col = n0 + ni * 8 + 2 * tq;
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(ex + (row0 + 8 * h + 1) * kExPitch + col) =
-                make_float2(acc[2 * s][ni][2 * h], acc[2 * s][ni][2 * h + 1]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = t0 + row0 + 8 * h, rem = r - tb.div(r) * tb.d;
-          const bool zero = s == 0 ? rem == 0 : rem == tb.d - 1;
-#pragma unroll
-          for (int ni = 0; ni < kNT; ++ni) {
-            const int col = n0 + ni * 8 + 2 * tq;
-            const float2 v = *reinterpret_cast<const float2*>(ex + (row0 + 8 * h + 2 * s) * kExPitch + col);
-            acc[1][ni][2 * h] += zero ? 0.0f : v.x;
-            acc[1][ni][2 * h + 1] += zero ? 0.0f : v.y;
-          }
-        }
-        __syncthreads();
+        for (int ni = 0; ni < kNT; ++ni) mma_bf16(acc[ni], af, bf[ni / 2][2 * (ni & 1)], bf[ni / 2][2 * (ni & 1) + 1]);
       }
     }
 
     // One rounding to bf16, into the staged y tile.
-    constexpr int out = kAcc == 3 ? 1 : 0;
 #pragma unroll
     for (int ni = 0; ni < kNT; ++ni) {
       const int col = n0 + ni * 8 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(ys + row0 * kPitch + col) =
-          __floats2bfloat162_rn(acc[out][ni][0], acc[out][ni][1]);
+      *reinterpret_cast<__nv_bfloat162*>(ys + row0 * kPitch + col) = __floats2bfloat162_rn(acc[ni][0], acc[ni][1]);
       *reinterpret_cast<__nv_bfloat162*>(ys + (row0 + 8) * kPitch + col) =
-          __floats2bfloat162_rn(acc[out][ni][2], acc[out][ni][3]);
+          __floats2bfloat162_rn(acc[ni][2], acc[ni][3]);
     }
     __syncthreads();
 
@@ -340,45 +251,36 @@ __global__ void __launch_bounds__(kThreads, 1) variant_kernel(
   cp_async_wait<0>();
 }
 
-// Blocks of variant_kernel<MODE> resident on the current device, over all SMs.
-template <int MODE>
-int resident(int* blocks) {
-  const void* kernel = reinterpret_cast<const void*>(variant_kernel<MODE>);
-  constexpr size_t smem = smem_bytes<MODE>();
-  int dev = 0, sms = 0, per_sm = 0, rc = 0;
-  if ((rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
-      (rc = static_cast<int>(
-           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) != 0 ||
-      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
-      (rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem))) != 0)
-    return rc;
-  *blocks = per_sm * sms;
-  return 0;
+// SMs of the current device.
+int device_sms(int* sms) {
+  int dev = 0, rc = 0;
+  if ((rc = static_cast<int>(cudaGetDevice(&dev))) != 0) return rc;
+  return static_cast<int>(cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
 }
 
-template <int MODE>
-int launch(const bf16* x, const bf16* w, const bf16* xp, const bf16* xn, bf16* y, int batch, int nb, int tb,
-           cudaStream_t stream) {
+int launch_v7(const bf16* x, const bf16* w, const bf16* xp, const bf16* xn, bf16* y, int batch, int nb, int tb,
+              cudaStream_t stream) {
   const long items = (long)batch * ((nb + kTile - 1) / kTile);
   if (items >= (1L << 30)) return -1;  // item + gridDim.x stays an int
-  int blocks = 0;
-  int rc = resident<MODE>(&blocks);
-  if (rc != 0) return rc;
+  const void* kernel = reinterpret_cast<const void*>(variant_kernel);
+  int sms = 0, per_sm = 0, rc = 0;
+  if ((rc = device_sms(&sms)) != 0 ||
+      (rc = static_cast<int>(
+           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kV7Smem)))) != 0 ||
+      (rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kV7Smem))) != 0)
+    return rc;
+  const long blocks = (long)per_sm * sms;
   if (blocks < 1) return -1;
   const int grid = static_cast<int>(items < blocks ? items : blocks);
-  variant_kernel<MODE><<<grid, kThreads, smem_bytes<MODE>(), stream>>>(x, w, xp, xn, y, batch, nb,
-                                                                        make_fast_div(tb));
+  variant_kernel<<<grid, kThreads, kV7Smem, stream>>>(x, w, xp, xn, y, batch, nb, wgmma_mm::make_fast_div(tb));
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_copy(const void* x, void* y, size_t n16, cudaStream_t stream) {
-  int dev = 0, sms = 0, rc = 0;
-  if ((rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
-      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0)
-    return rc;
-  const size_t want = (n16 + 255) / 256;
-  const int grid = static_cast<int>(want < (size_t)sms * 8 ? want : (size_t)sms * 8);
-  copy_kernel<<<grid, 256, 0, stream>>>(static_cast<const uint4*>(x), static_cast<uint4*>(y), n16);
+  const size_t blocks = (n16 + kCopyThreads - 1) / kCopyThreads;
+  if (blocks > 0x7fffffff) return -1;
+  copy_kernel<<<static_cast<unsigned>(blocks), kCopyThreads, 0, stream>>>(static_cast<const uint4*>(x),
+                                                                          static_cast<uint4*>(y), n16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,9 +288,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// mode: 0 = V0 (copy), 2 = V2, 3 = V3 (both in conv_variants_wgmma.cuh), 4 =
-// V4, 7 = V7. x, y: bf16 [batch, nb, 128]; w: bf16 [1, 128, 128] for V2, [3, 128, 128] for V3, V4, V7, unused by
-// V0; xp, xn: bf16 [batch, (nb / tb) * 8, 128] for V7, else unused. Every
+// mode: 0 = V0 (copy), 2 = V2, 3 = V3, 4 = V4 (the last three in
+// conv_variants_wgmma.cuh), 7 = V7. x, y: bf16 [batch, nb, 128]; w: bf16 [1, 128, 128] for V2, [3, 128, 128] for V3,
+// V4, V7, unused by V0; xp, xn: bf16 [batch, (nb / tb) * 8, 128] for V7, else unused. Every
 // pointer 16-byte aligned; tb > 0, tb % 8 == 0, nb % tb == 0. Returns 0 on
 // success, -1 for an unsupported configuration, otherwise the CUDA error
 // code of the launch.
@@ -399,15 +301,16 @@ extern "C" int w2s_conv_variant(int mode, const void* x, const void* w, const vo
   const auto s = static_cast<cudaStream_t>(stream);
   const auto xb = static_cast<const bf16*>(x), wb = static_cast<const bf16*>(w);
   const auto yb = static_cast<bf16*>(y);
-  if (mode == kCopy) return launch_copy(x, y, (size_t)batch * nb * kChunks, s);
+  const long rows = (long)batch * nb;
+  if (mode == kCopy) return launch_copy(x, y, (size_t)rows * kChunks, s);
   if (w == nullptr || !aligned16(w)) return -1;
   switch (mode) {
-    case kMm1: return wgmma_mm::launch<1>(xb, wb, yb, (long)batch * nb, s);
-    case kMm3: return wgmma_mm::launch<3>(xb, wb, yb, (long)batch * nb, s);
-    case kMm3s: return launch<kMm3s>(xb, wb, nullptr, nullptr, yb, batch, nb, tb, s);
+    case kMm1: return wgmma_mm::launch<1>(xb, wb, yb, rows, tb, s);
+    case kMm3: return wgmma_mm::launch<3>(xb, wb, yb, rows, tb, s);
+    case kMm3s: return wgmma_mm::launch<4>(xb, wb, yb, rows, tb, s);
     case kV7:
       if (xp == nullptr || xn == nullptr || !aligned16(xp) || !aligned16(xn)) return -1;
-      return launch<kV7>(xb, wb, static_cast<const bf16*>(xp), static_cast<const bf16*>(xn), yb, batch, nb, tb, s);
+      return launch_v7(xb, wb, static_cast<const bf16*>(xp), static_cast<const bf16*>(xn), yb, batch, nb, tb, s);
     default: return -1;
   }
 }

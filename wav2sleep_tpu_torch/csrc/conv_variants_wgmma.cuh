@@ -1,18 +1,22 @@
-// V2 and V3 of the K1 bisection ladder on Hopper's wgmma and TMA, sm_90a.
-// Included by conv_variants.cu, which dispatches modes 2 and 3 here.
+// V2, V3 and V4 of the K1 bisection ladder on Hopper's wgmma and TMA,
+// sm_90a. Included by conv_variants.cu, which dispatches modes 2, 3 and 4
+// here.
 //
-//   V2 (scripts/profile_pallas_variants.py:85, k_mm1f)  y = bf16(x @ W0)
-//   V3 (scripts/profile_pallas_variants.py:93, k_mm3)   y = bf16(x @ W0 + x @ W1 + x @ W2)
+//   V2 (scripts/profile_pallas_variants.py:85, k_mm1f)   y = bf16(x @ W0)
+//   V3 (scripts/profile_pallas_variants.py:93, k_mm3)    y = bf16(x @ W0 + x @ W1 + x @ W2)
+//   V4 (scripts/profile_pallas_variants.py:106, k_mm3s)  y[i] = bf16(x[i] @ W1
+//        + (i % tb != 0 ? x[i - 1] @ W0 : 0) + (i % tb != tb - 1 ? x[i + 1] @ W2 : 0))
 //
 // x and y are [batch, nb, 128] bf16, W [taps, 128, 128] bf16 used as x @ W[j]
-// (K1's [taps, C_in, C_out]), f32 sums, one rounding to bf16. Both rungs are
-// row-wise, so x is taken as its flat [batch * nb, 128] rows and the
-// function's tile length tb plays no part.
+// (K1's [taps, C_in, C_out]), f32 sums, one rounding to bf16. All three are
+// taken over the flat [batch * nb, 128] rows: V2 and V3 are row-wise, and
+// V4's zero edges at every multiple of tb include the batch edges (nb is a
+// multiple of tb).
 //
 // What bounds them on an H100 (SXM, 700 W, x [8, 153,600, 128]): bytes. x is
 // read once and y written once, 2 x 1,228,800 x 256 bytes, 0.1878 ms at 3.35
-// TB/s. V3 does 768 FLOPs a row for 256 bytes read (192 a byte, under the
-// ~295 where the bf16 tensor cores stop being bound by HBM): 0.122 ms at
+// TB/s. V3 and V4 do 768 FLOPs a row for 256 bytes read (192 a byte, under
+// the ~295 where the bf16 tensor cores stop being bound by HBM): 0.122 ms at
 // 989 TFLOP/s; V2 a third of that. Measured on an H100 SXM at 700 W
 // (PERF.md), V2 runs at the copy's pace while V3's three products draw
 // the card's power limit, so its SM clock falls from 1.98 GHz to 1.4-1.8:
@@ -24,22 +28,12 @@
 // V2 with other weights and tell nothing about K1's three taps, so V3 chains
 // its 3 x 8 k-steps into one f32 accumulator.
 //
-// What held the mma.sync versions of these rungs back (the variant_kernel
-// template of conv_variants.cu before this file; V2 0.2635, V3 0.4331 ms
-// back to back, 71% and 43% of the bound), and what this design does:
-// - Shared-memory reads. Each of 16 warps ldmatrix'ed its own 32 columns
-//   of B for every k-step of every 64-row item: ~576 KB of shared reads a
-//   V3 item, ~2.5 us at ~128 B/clock. Here wgmma reads B from shared memory
-//   once per warpgroup: 24 x 6 KB = 144 KB a V3 tile of 64 rows.
-// - Bytes in flight. The old ring had two slots and 168 KB of shared memory
-//   for one block, so one 16 KB item was in flight per SM. Here one
-//   producer thread keeps a ring of 6 (V3) or 8 (V2) stages of 16 KB full
-//   with TMA: up to 5 (7) tiles in flight per SM, and no thread spends
-//   registers or instructions on the copies.
-// - Stores. y went out in 16-byte stores after a __syncthreads(). Here each
-//   consumer warpgroup rounds its tile into its own y buffer and one thread
-//   stores it with a TMA tensor store, which runs while the warpgroup goes
-//   on to its next tile.
+// Why V4 shifts the f32 products and not the bf16 rows: the ladder measures
+// both sides of K1's tap shift. V7 (conv_variants.cu) feeds shifted input
+// rows to the tensor cores, as K1 does; V4 multiplies the unshifted rows and
+// moves the products one row down (W0) and up (W2), which is what this
+// file's loop would do for K1 if its descriptors could not start at row
+// i + j.
 //
 // Design (hopper-kernels guide section 1):
 // - Persistent blocks, one per SM (grid = min(SMs, tiles)), 384 threads: two
@@ -53,8 +47,9 @@
 //   boxes of 64 channels x 64 rows with the 128-byte swizzle (128 bytes is
 //   the widest box row that swizzle takes, so a tile is two boxes). Each
 //   stage has a full mbarrier (one arrival with the tile's 16 KB of
-//   transactions) and an empty one (128 consumer arrivals). Rows past the
-//   end of x are zero-filled by TMA: no window or bounds in the kernel.
+//   transactions) and an empty one (128 consumer arrivals). Rows past
+//   either end of x are zero-filled by TMA: no window or bounds in the
+//   kernel.
 // - The weights come in once per block, by TMA as well, as they lie: W[j] is
 //   [C_in][C_out] with C_out contiguous, i.e. wgmma's B [K][N] N-major, which
 //   16-bit wgmma reads with its transpose bit. A map over the [taps x 128,
@@ -62,24 +57,47 @@
 //   swizzle, gives per tap two 16 KB halves of the outputs; the descriptor
 //   steps 16 KB between them (leading offset) and 1024 bytes between groups
 //   of 8 inputs (stride offset), and a k-step of 16 inputs adds 2048 bytes.
-//   Staging them with threads instead (a transposing copy, a load and 8
-//   two-byte stores per 16 bytes) cost a dependent round trip per 16 bytes
-//   per thread at the start of every block.
 // - wgmma.mma_async m64n128k16, A (K-major: the k-step of 16 channels adds
 //   32 bytes inside a 128-byte swizzle atom) and B from shared memory, f32
-//   accumulator of 64 registers a thread; the tile's first k-step has
-//   scale-d 0. fence / commit_group / wait_group 0 once per tile.
+//   accumulators of 64 registers a thread; a product's first k-step has
+//   scale-d 0.
 // - Epilogue: after the stage is released, the warpgroup waits for its
 //   previous TMA store to have read its y buffer, writes its bf16x2 pairs
 //   with the same swizzle (conflict-free), fences the async proxy and one
 //   thread issues two TMA stores; TMA clips rows past the end of y.
 // - Shared memory: V3 6 x 16 KB ring + 2 x 16 KB y + 96 KB W = 224 KB (plus
 //   alignment and barriers, under the 227 KB limit); V2 8 x 16 KB + 32 KB +
-//   32 KB = 192 KB.
+//   32 KB = 192 KB; V4 4 x 16 KB + 32 KB + 96 KB + 6 KB of exchange rows.
 // - Tensor maps are encoded on the host per call with
 //   cuTensorMapEncodeTiled, looked up through the runtime's
 //   cudaGetDriverEntryPointByVersion (no -lcuda), and passed as
 //   __grid_constant__ parameters.
+//
+// V4's shift, on the same loop:
+// - Overlapping tiles. Tile k reads rows 62k - 1 .. 62k + 62 and writes rows
+//   62k .. 62k + 61 (a y box of 62 rows), so every product an output row
+//   needs is in its own tile and no tile waits for another: 64 / 62 of the
+//   bytes read and of the products (3.2% more). Handing the edge rows'
+//   products between tiles instead would chain the two warpgroups (and the
+//   blocks at span edges) to each other.
+// - Two accumulators, not three: at 384 threads a thread has 168 registers,
+//   and one m64n128 f32 accumulator is 64. The warpgroup runs P0 = x @ W0
+//   into a scratch accumulator and P1 = x @ W1 into y's in one group, adds
+//   P0 one row down into y's, then runs P2 = x @ W2 into the scratch and
+//   adds it one row up. The producer warpgroup gives its registers to the
+//   consumers (setmaxnreg 40 / 232), so the two accumulators, the shift's
+//   temporaries and the addresses fit without spills.
+// - The shift in registers. In the accumulator layout warp w of the
+//   warpgroup holds rows 16w .. 16w + 15, lane l rows 16w + l / 4 (its
+//   first register half) and 16w + l / 4 + 8 (its second). A shift of one
+//   row is one shfl by 4 lanes per value: rows 7 and 8 swap register halves
+//   on the way (the sender picks which half it sends), and the one row per
+//   warp that crosses to the neighbouring warp goes through 512 bytes of
+//   shared memory per warp boundary, after a named barrier of the
+//   warpgroup.
+// - The zero edges: the lane's two rows' global index i gives i % tb by
+//   FastDiv (a multiply and a shift), once per tile; the shifted product is
+//   added only where i % tb != 0 (P0) and != tb - 1 (P2).
 
 #pragma once
 
@@ -103,14 +121,43 @@ constexpr int kWHalfBytes = kD * 128;        // one tap's 64 outputs for all 128
 constexpr int kWTapBytes = 2 * kWHalfBytes;  // 32 KB
 constexpr int kConsumers = 2;                // warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;
+// V4's exchange rows per consumer warpgroup: for each of its two shifts, one
+// f32 row per boundary between its four warps.
+constexpr int kExBytes = 2 * 3 * kD * 4;
 
-template <int TAPS>
-__host__ __device__ constexpr int stages() { return TAPS == 3 ? 6 : 8; }
+// n / d for 0 <= n < 2^31 by a multiply and a shift (CUTLASS's FastDivmod):
+// tb is a kernel argument, and an integer division by it costs tens of
+// instructions, enough to show on the ladder's rungs.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+  __device__ __forceinline__ int div(int n) const {
+    return static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >> shr);
+  }
+};
 
-template <int TAPS>
+inline FastDiv make_fast_div(int d) {  // d >= 2
+  int log2 = 31 - __builtin_clz(static_cast<unsigned>(d));
+  log2 += (d & (d - 1)) != 0;
+  const unsigned p = 31 + log2;
+  return {d, static_cast<uint32_t>(((1ull << p) + d - 1) / d), p - 32};
+}
+
+// MODE: 1 = V2, 3 = V3, 4 = V4.
+template <int MODE>
+__host__ __device__ constexpr int taps() { return MODE == 1 ? 1 : 3; }
+
+// Rows of y a tile writes: V4's tiles overlap by two rows.
+template <int MODE>
+__host__ __device__ constexpr int out_rows() { return MODE == 4 ? kRows - 2 : kRows; }
+
+template <int MODE>
+__host__ __device__ constexpr int stages() { return MODE == 1 ? 8 : MODE == 3 ? 6 : 4; }
+
+template <int MODE>
 constexpr size_t smem_bytes() {
-  return 1024 /* alignment of the swizzled tiles */ + (size_t)(stages<TAPS>() + kConsumers) * kTileBytes +
-         (size_t)TAPS * kWTapBytes + 8 * (2 * stages<TAPS>() + 1);
+  return 1024 /* alignment of the swizzled tiles */ + (size_t)(stages<MODE>() + kConsumers) * kTileBytes +
+         (size_t)taps<MODE>() * kWTapBytes + (MODE == 4 ? kConsumers * kExBytes : 0) + 8 * (2 * stages<MODE>() + 1);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -218,20 +265,94 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// y = bf16(sum over TAPS taps of x @ W[j]) over n_tiles tiles of 64 rows.
-template <int TAPS>
+// d (+)= the tile in stage a @ W[j]: 8 k-steps of 16 channels.
+__device__ __forceinline__ void tap_product(float (&d)[64], uint32_t a, uint32_t ws, int j, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t a_k = a + (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    const uint32_t b_k = ws + j * kWTapBytes + kk * 16 * 128;
+    wgmma_m64n128k16(d, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), accumulate || kk > 0);
+  }
+}
+
+// V4: acc[row] += p[row + DIR] (DIR -1: one row down, P0; +1: one row up,
+// P2) for the lane's two rows, where keep[h] says the row's term is not cut
+// by an edge of the function's tiles. ex: this warpgroup's 3 exchange rows
+// for the shift (f32, one per boundary between its warps); bar: its named
+// barrier. Row 0 (DIR -1) and row 63 (DIR +1) get no term: they are the
+// overlap rows, which this tile does not write.
+template <int DIR>
+__device__ __forceinline__ void add_shifted(float (&acc)[64], const float (&p)[64], const bool (&keep)[2],
+                                            float* ex, int bar, int warp, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  // The one row per warp that crosses to the neighbouring warp: DIR -1
+  // sends row 16w + 15 (g 7, second half) to warp w + 1; DIR +1 sends row 16w
+  // (g 0, first half) to warp w - 1.
+  const int edge_g = DIR < 0 ? 7 : 0;
+  const int h_send = DIR < 0 ? 1 : 0;
+  const bool sends = g == edge_g && (DIR < 0 ? warp < 3 : warp > 0);
+  if (sends) {
+    float* row = ex + (DIR < 0 ? warp : warp - 1) * kD;
+#pragma unroll
+    for (int i = 0; i < kD / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i + 2 * tq) = make_float2(p[4 * i + 2 * h_send], p[4 * i + 2 * h_send + 1]);
+  }
+  named_bar_sync(bar, 128);
+  // The lane that holds the wanted rows: 4 lanes back (DIR -1) or on.
+  const int src = (lane + (DIR < 0 ? 28 : 4)) & 31;
+  // The receiving half that needs a row from the other warp (DIR -1: the
+  // first half of g 0; DIR +1: the second half of g 7), and whether this
+  // warp has that neighbour (else the row is an overlap row: 0).
+  const int recv_g = DIR < 0 ? 0 : 7;
+  const int h_recv = DIR < 0 ? 0 : 1;
+  const bool has_nb = DIR < 0 ? warp > 0 : warp < 3;
+  const float* nb_row = ex + (DIR < 0 ? warp - 1 : warp) * kD;
+  // The sender's half that crosses rows 7 | 8: DIR -1, the receiver's
+  // second half (row 8) of g 0 wants the sender's (g 7) first half (row 7);
+  // DIR +1, the receiver's first half of g 7 (row 7) wants the sender's
+  // (g 0) second half (row 8).
+  const int swap_g = DIR < 0 ? 7 : 0;
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) {
+    float2 cross = make_float2(0.0f, 0.0f);
+    if (g == recv_g && has_nb) cross = *reinterpret_cast<const float2*>(nb_row + 8 * i + 2 * tq);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float v0 = p[4 * i + c], v1 = p[4 * i + 2 + c];
+      // DIR -1: the second half takes row r - 1, which for g 0 is the
+      // sender's first half. DIR +1: the first half takes row r + 1, which
+      // for g 7 is the sender's second half.
+      const float mixed = __shfl_sync(0xffffffffu, g == swap_g ? (DIR < 0 ? v0 : v1) : (DIR < 0 ? v1 : v0), src);
+      const float same = __shfl_sync(0xffffffffu, DIR < 0 ? v0 : v1, src);
+      float t0 = DIR < 0 ? same : mixed, t1 = DIR < 0 ? mixed : same;
+      if (g == recv_g) {
+        if (h_recv == 0) t0 = c ? cross.y : cross.x;
+        else t1 = c ? cross.y : cross.x;
+      }
+      if (keep[0]) acc[4 * i + c] += t0;
+      if (keep[1]) acc[4 * i + 2 + c] += t1;
+    }
+  }
+}
+
+// MODE 1 (V2), 3 (V3): y = bf16(sum over taps of x @ W[j]) over n_tiles
+// tiles of 64 rows. MODE 4 (V4): y = bf16(x @ W1 + the shifted products)
+// over n_tiles overlapping tiles that write 62 rows each.
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
     mm_wgmma_kernel(__grid_constant__ const CUtensorMap x_map, __grid_constant__ const CUtensorMap y_map,
-                    __grid_constant__ const CUtensorMap w_map, int n_tiles) {
-  constexpr int S = stages<TAPS>();
+                    __grid_constant__ const CUtensorMap w_map, int n_tiles, FastDiv tb) {
+  constexpr int S = stages<MODE>(), TAPS = taps<MODE>(), STEP = out_rows<MODE>();
+  constexpr int kFirstRow = MODE == 4 ? -1 : 0;  // global row of tile row 0, less tile * STEP
   static_assert(S % kConsumers == 0, "each consumer warpgroup owns every other stage");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   const uint32_t ring = smem_u32(base);
   const uint32_t ys = ring + S * kTileBytes;
   const uint32_t ws = ys + kConsumers * kTileBytes;
-  const uint32_t full = ws + TAPS * kWTapBytes;  // S mbarriers, S empty ones, the weights' one
-  const uint32_t empty = full + 8 * S;
+  float* ex_all = reinterpret_cast<float*>(base + (ws - ring) + TAPS * kWTapBytes);  // V4 only
+  const uint32_t full = ws + TAPS * kWTapBytes + (MODE == 4 ? kConsumers * kExBytes : 0);
+  const uint32_t empty = full + 8 * S;  // S full mbarriers, S empty ones, the weights' one
   const uint32_t w_full = empty + 8 * S;
   const int tid = threadIdx.x, wg = tid / 128;
 
@@ -246,6 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (wg == kConsumers) {  // the producer: one thread issues every load
+    if constexpr (MODE == 4) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == kConsumers * 128) {
       mbar_expect_tx(w_full, TAPS * kWTapBytes);
       for (int j = 0; j < TAPS; ++j)
@@ -253,39 +375,66 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(ws + j * kWTapBytes + h * kWHalfBytes, &w_map, w_full, h * kBoxCols, j * kD);
       for (int k = 0, tile = blockIdx.x; tile < n_tiles; ++k, tile += gridDim.x) {
         const int s = k % S;
+        const int row = tile * STEP + kFirstRow;
         mbar_wait(empty + 8 * s, ((k / S) & 1) ^ 1);  // the first round finds every stage free
         mbar_expect_tx(full + 8 * s, kTileBytes);
-        tma_load(ring + s * kTileBytes, &x_map, full + 8 * s, 0, tile * kRows);
-        tma_load(ring + s * kTileBytes + kBoxBytes, &x_map, full + 8 * s, kBoxCols, tile * kRows);
+        tma_load(ring + s * kTileBytes, &x_map, full + 8 * s, 0, row);
+        tma_load(ring + s * kTileBytes + kBoxBytes, &x_map, full + 8 * s, kBoxCols, row);
       }
     }
     return;
   }
+  if constexpr (MODE == 4) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
   mbar_wait(w_full, 0);
   const int wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;  // accumulator rows warp * 16 + g (+ 8), columns 8i + 2tq (+ 1)
   const uint32_t ybuf = ys + wg * kTileBytes;
+  float* ex = ex_all + wg * (kExBytes / 4);
   float acc[64] = {};
+  float scratch[MODE == 4 ? 64 : 1] = {};  // V4's P0, then P2
   for (int k = wg, tile = blockIdx.x + wg * gridDim.x; tile < n_tiles;
        k += kConsumers, tile += kConsumers * gridDim.x) {
     const int s = k % S;
     mbar_wait(full + 8 * s, (k / S) & 1);
     const uint32_t a = ring + s * kTileBytes;
-    wgmma_fence();
+    if constexpr (MODE == 4) {
+      // The lane's rows and which of their shifted terms an edge of the
+      // function's tiles cuts: keep0 for P0 (i % tb != 0), keep2 for P2
+      // (i % tb != tb - 1). Row -1 (tile 0's overlap row) is never written.
+      bool keep0[2], keep2[2];
 #pragma unroll
-    for (int j = 0; j < TAPS; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t a_k = a + (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        const uint32_t b_k = ws + j * kWTapBytes + kk * 16 * 128;
-        wgmma_m64n128k16(acc, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), j + kk > 0);
+      for (int h = 0; h < 2; ++h) {
+        const int i = tile * STEP + kFirstRow + warp * 16 + g + 8 * h;
+        const int rem = i - tb.div(i < 0 ? 0 : i) * tb.d;
+        keep0[h] = i >= 0 && rem != 0;
+        keep2[h] = i >= 0 && rem != tb.d - 1;
       }
+      wgmma_fence();
+      tap_product(scratch, a, ws, 0, false);  // P0
+      tap_product(acc, a, ws, 1, false);      // P1 into y's accumulator
+      wgmma_commit();
+      wgmma_wait();
+      fence_operands(scratch);
+      fence_operands(acc);
+      add_shifted<-1>(acc, scratch, keep0, ex, 1 + wg, warp, lane);
+      wgmma_fence();
+      tap_product(scratch, a, ws, 2, false);  // P2
+      wgmma_commit();
+      wgmma_wait();
+      fence_operands(scratch);
+      fence_operands(acc);
+      mbar_arrive(empty + 8 * s);
+      add_shifted<1>(acc, scratch, keep2, ex + 3 * kD, 1 + wg, warp, lane);
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < TAPS; ++j) tap_product(acc, a, ws, j, j > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_operands(acc);
+      mbar_arrive(empty + 8 * s);
     }
-    wgmma_commit();
-    wgmma_wait();
-    fence_operands(acc);
-    mbar_arrive(empty + 8 * s);
 
     // Epilogue: the y buffer is free once this warpgroup's last store has read it.
     if (wtid == 0) bulk_wait_read();
@@ -294,7 +443,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < kD / 8; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + g + 8 * h;
+        // Tile row m goes to y buffer row m + kFirstRow: V4 drops its two
+        // overlap rows 0 and 63.
+        const int r = warp * 16 + g + 8 * h + kFirstRow;
+        if (r < 0 || r >= STEP) continue;
         const uint32_t addr = ybuf + (i / 8) * kBoxBytes + r * 128 + (((i % 8) ^ (r & 7)) << 4) + tq * 4;
         const uint32_t pair = pack_bf16x2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pair) : "memory");
@@ -303,8 +455,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_async_shared();
     named_bar_sync(1 + wg, 128);
     if (wtid == 0) {
-      tma_store(&y_map, ybuf, 0, tile * kRows);
-      tma_store(&y_map, ybuf + kBoxBytes, kBoxCols, tile * kRows);
+      tma_store(&y_map, ybuf, 0, tile * STEP);
+      tma_store(&y_map, ybuf + kBoxBytes, kBoxCols, tile * STEP);
       bulk_commit();
     }
   }
@@ -336,7 +488,7 @@ inline int encode_tiled(EncodeTiled* fn) {
 }
 
 // A map over rows x 128 bf16, boxes of 64 channels x box_rows rows,
-// 128-byte swizzle; reads past the last row give zeros, writes there are
+// 128-byte swizzle; reads outside the rows give zeros, writes there are
 // dropped.
 inline int row_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long rows, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows)};
@@ -349,24 +501,26 @@ inline int row_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long r
   return static_cast<int>(rc);
 }
 
-template <int TAPS>
-int launch(const bf16* x, const bf16* w, bf16* y, long rows, cudaStream_t stream) {
+template <int MODE>
+int launch(const bf16* x, const bf16* w, bf16* y, long rows, int tb, cudaStream_t stream) {
   if (rows < 1 || rows > (1L << 31) - 2 * kRows) return -1;  // TMA's row coordinate is an int
-  const int n_tiles = static_cast<int>((rows + kRows - 1) / kRows);
-  const void* kernel = reinterpret_cast<const void*>(mm_wgmma_kernel<TAPS>);
-  constexpr size_t smem = smem_bytes<TAPS>();
+  constexpr int STEP = out_rows<MODE>();
+  const int n_tiles = static_cast<int>((rows + STEP - 1) / STEP);
+  const void* kernel = reinterpret_cast<const void*>(mm_wgmma_kernel<MODE>);
+  constexpr size_t smem = smem_bytes<MODE>();
   EncodeTiled encode = nullptr;
   CUtensorMap x_map, y_map, w_map;
   int dev = 0, sms = 0, rc = 0;
   if ((rc = encode_tiled(&encode)) != 0 || (rc = row_map(encode, &x_map, x, rows, kRows)) != 0 ||
-      (rc = row_map(encode, &y_map, y, rows, kRows)) != 0 || (rc = row_map(encode, &w_map, w, TAPS * kD, kD)) != 0 ||
+      (rc = row_map(encode, &y_map, y, rows, STEP)) != 0 ||
+      (rc = row_map(encode, &w_map, w, taps<MODE>() * kD, kD)) != 0 ||
       (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
       (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
       (rc = static_cast<int>(
            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) != 0)
     return rc;
   const int grid = n_tiles < sms ? n_tiles : sms;
-  mm_wgmma_kernel<TAPS><<<grid, kThreads, smem, stream>>>(x_map, y_map, w_map, n_tiles);
+  mm_wgmma_kernel<MODE><<<grid, kThreads, smem, stream>>>(x_map, y_map, w_map, n_tiles, make_fast_div(tb));
   return static_cast<int>(cudaGetLastError());
 }
 

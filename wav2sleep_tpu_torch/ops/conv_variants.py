@@ -1,6 +1,6 @@
 """The K1 bisection ladder: ``scripts/profile_pallas_variants.py``'s five
 Pallas kernels as CUDA C++ kernels for sm_90a (``csrc/conv_variants.cu``;
-V2 and V3 in ``csrc/conv_variants_wgmma.cuh``).
+V2, V3 and V4 in ``csrc/conv_variants_wgmma.cuh``).
 
 The JAX script bisects the cost of the k=3 conv kernel at its hot shape
 (B = 8, 153,600 rows of 128 bf16 channels) by timing stripped-down
@@ -26,12 +26,16 @@ multiple of ``tb``. V2 and V3 are row-wise, so ``tb`` is checked but plays
 no part in them. W uses K1's layout, ``[3, C_in, C_out]`` applied as
 ``x @ W[j]``.
 
-The kernels: V0 a vectorised copy; V2 and V3 Hopper's ``wgmma`` (B read
-from shared memory once per warpgroup) fed by a TMA ring over the flat
-``[B * nb, 128]`` rows, with TMA stores of y, in persistent blocks; V3 runs
-its three products into one f32 accumulator rather than summing the
-weights, since the ladder bisects K1's three taps. V4 and V7 share an
-``mma.sync`` template built from K1's own main loop.
+The kernels: V0 one 16-byte vector per thread in short-lived blocks of
+1024 threads (at ``Tensor.copy_``'s rate, which no persistent design
+reached); V2, V3 and V4 Hopper's
+``wgmma`` (B read from shared memory once per warpgroup) fed by a TMA ring
+over the flat ``[B * nb, 128]`` rows, with TMA stores of y, in persistent
+blocks. V3 runs its three products into one f32 accumulator rather than
+summing the weights, since the ladder bisects K1's three taps; V4 shifts
+two of them by a row in registers (tiles of 64 rows that write 62, so
+each has the neighbour rows it needs). V7 keeps an ``mma.sync`` template
+built from K1's own main loop.
 
 Like ``ops/conv_k3.py``: for CUDA tensors the wrappers launch the kernel and
 count it in ``LAUNCHES``; for CPU tensors they run the plain versions
@@ -44,6 +48,7 @@ wav2sleep_tpu_torch.profile_variants`` times them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -190,10 +195,16 @@ def _run(name, reference, x, tb, w=None, xp=None, xn=None):
     y = torch.empty_like(x)
     lib = build()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x.device):
+    # The launch goes to x's device, on its current stream. Host time per
+    # call is kept down: the device is entered only when it is not the
+    # current one, and the stream is read as its raw handle, with no
+    # Stream object.
+    index = x.device.index
+    here = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(index):
         rc = lib.w2s_conv_variant(
             MODES[name], x.data_ptr(), ptr(w), ptr(xp), ptr(xn), y.data_ptr(), B, nb, tb,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            torch._C._cuda_getCurrentRawStream(index),
         )
     if rc != 0:
         raise RuntimeError(f'{name} launch failed: error {rc} at x {tuple(x.shape)}, tb {tb}')

@@ -95,7 +95,8 @@ def sass(lib_path: Path) -> str:
 
 def sass_counts(listing: str, opcodes) -> dict[str, dict[str, int]]:
     """Per kernel (mangled name) of a ``cuobjdump -sass`` listing: how many
-    of its instructions have each opcode (``HGMMA`` counts ``HGMMA.64x128x16...``)."""
+    of its instructions have each opcode (``HGMMA`` counts ``HGMMA.64x128x16...``,
+    ``LDG.E.128`` counts ``LDG.E.128.CONSTANT``)."""
     parts = re.split(r'Function : (\S+)', listing)
-    return {name: {op: len(re.findall(rf'\b{op}\b', body)) for op in opcodes}
+    return {name: {op: len(re.findall(rf'\b{re.escape(op)}\b', body)) for op in opcodes}
             for name, body in zip(parts[1::2], parts[2::2])}

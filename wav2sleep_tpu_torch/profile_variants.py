@@ -18,7 +18,10 @@ Then it checks V7, with the true neighbours as halo rows, against K1
 (``conv_k3`` at 128 -> 128, stride 1) and times, on the same x and W,
 ``k1_ms`` (K1), ``conv1d_ms`` (``F.conv1d``, channels-first views of the
 same tensors, as ``chip_smoke.py`` times it) and the one PyTorch call of
-V2's and of V3's function: ``matmul_ms`` (``torch.matmul(x, W0)``) and
+V0's, V2's and V3's function: ``tensor_copy_ms`` (``Tensor.copy_`` into a
+y allocated once, the runtime's device-to-device copy; and
+``tensor_copy_fresh_ms``, into a y allocated each call, as V0's wrapper
+allocates its y), ``matmul_ms`` (``torch.matmul(x, W0)``) and
 ``einsum_ms`` (``torch.einsum('bnc,kco->bno', x, W)``, which sums W over
 the taps first). With ``--both`` (the card only; ``chip_smoke.py`` times
 its calls both ways itself and counts the launches of the marginal runs
@@ -33,9 +36,11 @@ kernels. Run the versions in one call, in the order A, B, B, A.
 The inputs are the JAX script's: ``np.random.default_rng(0)``, x drawn
 first, then W x 0.1, both rounded to bf16. Each time is the JAX script's
 marginal cost, k chained calls against one call, measured between CUDA
-events, median over ``--reps``. ``bound_ms`` is the least time the card
-could take for any rung: x read once and y written once at 3.35 TB/s (every
-rung is bound by bytes; V7's halo rows and W add under 0.1%).
+events, median over ``--reps``. On the card each call is timed after
+``IDLE_S`` of an idle card, so that a call drawing the 700 W limit (V3,
+V4) does not slow the one timed after it. ``bound_ms`` is the least time
+the card could take for any rung: x read once and y written once at 3.35
+TB/s (every rung is bound by bytes; V7's halo rows and W add under 0.1%).
 
 It prints the card's name and power limit, then one JSON line with those
 keys, the shape and the device. The JAX script's ``mm3_parsem_ms`` and
@@ -69,6 +74,8 @@ HBM_BYTES_PER_S = 3.35e12
 # bf16 products in f32, in their own orders, and round y once (1 ulp,
 # 2**-8 to 2**-7 relative), as chip_smoke.py's bound for bf16 K1.
 TOL = 2.0**-6
+# Seconds the card idles before each call is timed.
+IDLE_S = 1.0
 
 
 def inputs(B: int, nb: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -133,6 +140,12 @@ def run(B: int = 8, nb: int = 153_600, tb: int = 2048, k: int = 5, reps: int = 3
     w0 = w[0]
     xp0 = torch.zeros((B, nb // tb * 8, cv.D), dtype=torch.bfloat16, device=dev)
     xn0 = torch.zeros_like(xp0)
+
+    def idle():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            time.sleep(IDLE_S)
+
     results = {'shape': f'B={B} nb={nb} D={cv.D} TB={tb} bf16',
                'device': torch.cuda.get_device_name(dev) if on_card else 'cpu'}
     rungs = {
@@ -144,6 +157,7 @@ def run(B: int = 8, nb: int = 153_600, tb: int = 2048, k: int = 5, reps: int = 3
     }
     with torch.inference_mode():
         for key, fn in rungs.items():
+            idle()
             results[key] = timeit(fn, k, reps, dev)
         results['bound_ms'] = bound_ms(B, nb)
         xp, xn = cv.true_halos(x, tb)
@@ -152,16 +166,23 @@ def run(B: int = 8, nb: int = 153_600, tb: int = 2048, k: int = 5, reps: int = 3
             raise AssertionError(f'profile_variants: V7 with true halos is not K1 (max |d| {err:.3e})')
         results['v7_vs_k1_max_abs_err'] = err
         w_oik = w.permute(2, 1, 0).contiguous()
+        y_copy = torch.empty_like(x)
         others = {
             'k1_ms': lambda: k1.conv_k3(x, w),
             'conv1d_ms': lambda: F.conv1d(x.transpose(1, 2), w_oik, None, padding=1),
+            'tensor_copy_ms': lambda: y_copy.copy_(x),
+            'tensor_copy_fresh_ms': lambda: torch.empty_like(x).copy_(x),
             'matmul_ms': lambda: torch.matmul(x, w0),
             'einsum_ms': lambda: torch.einsum('bnc,kco->bno', x, w),
         }
         for key, fn in others.items():
+            idle()
             results[key] = timeit(fn, k, reps, dev)
         if both:
-            results['both_ms'] = {key: list(both_ms(fn)) for key, fn in {**rungs, **others}.items()}
+            results['both_ms'] = {}
+            for key, fn in {**rungs, **others}.items():
+                idle()
+                results['both_ms'][key] = list(both_ms(fn))
     print(json.dumps(results), flush=True)
     return results
 
