@@ -69,12 +69,13 @@ Phases (any failure raises, so the script exits non-zero):
 
 10. Profile variants: the K1 bisection ladder of ``ops/conv_variants.py``
    (``scripts/profile_pallas_variants.py``'s kernels) at x [8, 153,600, 128]
-   bf16, tb 2048. First the proof that V2 and V3 run on wgmma and TMA: the
-   HGMMA, UTMALDG and UTMASTG instructions of their kernels in the built
-   library's SASS (``cuobjdump -sass``), none missing, beside ptxas's
-   registers and spills. Then ``python -m wav2sleep_tpu_torch.profile_variants``'s
-   ``run`` once (its JSON line; launches counted from 0 around it); then each
-   kernel against its plain version on the same inputs, V0 bit for bit and
+   bf16, tb 2048. First the proof of each rung's route in the built
+   library's SASS (``cuobjdump -sass``): V2, V3, V4 and V7 on wgmma and
+   TMA (HGMMA, UTMALDG and UTMASTG, none missing, V7 with V3's 24 HGMMA),
+   V0 one 16-byte load and store, beside ptxas's registers and spills.
+   Then ``python -m wav2sleep_tpu_torch.profile_variants``'s ``run`` once
+   (its JSON line; launches counted from 0 around it); then each kernel
+   against its plain version on the same inputs, V0 bit for bit and
    the others within ``BF16_TOL`` of |plain| + rms(plain), V7 with zero,
    random and true-neighbour halos (``run`` holds the last against K1); each
    rung, its plain version, K1 and one PyTorch call of the same function
@@ -892,20 +893,22 @@ VARIANT_B, VARIANT_NB, VARIANT_TB = 8, 153_600, 2048
 VARIANT_REPLACES = {'copy': 79, 'mm1f': 85, 'mm3': 93, 'mm3s': 106, 'v7': 136}
 # Each rung's kernel by a part of its mangled name, and the SASS opcodes
 # that prove its route, each with the count it must have (None: at least
-# one): V2, V3 and V4 (csrc/conv_variants_wgmma.cuh) wgmma (HGMMA), TMA
-# loads (UTMALDG) and stores (UTMASTG); V0 (csrc/conv_variants.cu) one
-# 16-byte load and one store (LDG.E.128, STG.E.128), a vector per thread
-# and no loop.
+# one): V2, V3, V4 and V7 (csrc/conv_variants_wgmma.cuh) wgmma (HGMMA), TMA
+# loads (UTMALDG) and stores (UTMASTG), V7 with V3's 24 wgmma k-steps on
+# its one path (the three taps read one window); V0 (csrc/conv_variants.cu)
+# one 16-byte load and one store (LDG.E.128, STG.E.128), a vector per
+# thread and no loop.
 WGMMA_OPCODES = dict.fromkeys(('HGMMA', 'UTMALDG', 'UTMASTG'))
 SASS_EVIDENCE = {'copy': ('copy_kernel', {'LDG.E.128': 1, 'STG.E.128': 1}),
                  'mm1f': ('mm_wgmma_kernelILi1E', WGMMA_OPCODES), 'mm3': ('mm_wgmma_kernelILi3E', WGMMA_OPCODES),
-                 'mm3s': ('mm_wgmma_kernelILi4E', WGMMA_OPCODES)}
+                 'mm3s': ('mm_wgmma_kernelILi4E', WGMMA_OPCODES),
+                 'v7': ('v7_wgmma_kernel', {**WGMMA_OPCODES, 'HGMMA': 24})}
 VARIANT_SOURCES = {'copy': 'conv_variants.cu', 'mm1f': 'conv_variants_wgmma.cuh', 'mm3': 'conv_variants_wgmma.cuh',
-                   'mm3s': 'conv_variants_wgmma.cuh', 'v7': 'conv_variants.cu'}
+                   'mm3s': 'conv_variants_wgmma.cuh', 'v7': 'conv_variants_wgmma.cuh'}
 
 
 def sass_evidence(cv, cuda_build) -> dict:
-    """Per V0, V2, V3 and V4 wrapper: its kernel's counts of the opcodes of
+    """Per wrapper of the ladder: its kernel's counts of the opcodes of
     its route in the SASS of the built library and ptxas's registers and
     spilled bytes; raises unless each kernel has every opcode of its route,
     as many times as the route says."""
@@ -1035,7 +1038,7 @@ def phase_variants(torch, F, k1, cv, cuda_build, profile_variants):
             **evidence.get(name, {})))
     times['k1'] = both_ms(lambda: k1.conv_k3(x, w))
     log(f'variants: K1 (conv_k3 128->128 s1) on the same x and W: {fmt(times["k1"])} ms one call (back to back)')
-    for a, b in (('mm1f', 'copy'), ('mm3', 'mm1f'), ('mm3s', 'mm3'), ('v7', 'mm3'), ('k1', 'v7')):
+    for a, b in (('mm1f', 'copy'), ('mm3', 'mm1f'), ('mm3s', 'mm3'), ('v7', 'mm3'), ('v7', 'mm3s'), ('k1', 'v7')):
         log(f'variants: gap {a} - {b}: {times[a][0] - times[b][0]:+.4f} ms one call, '
             f'{times[a][1] - times[b][1]:+.4f} ms back to back')
     log('variants: profile_variants marginal ms: ' + ', '.join(
@@ -1104,8 +1107,8 @@ def main() -> int:
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
              max_abs_err=k3_err, **k3_line),
         # The five profiling variants: phase 10, x [8, 153,600, 128] bf16,
-        # tb 2048; launches: the profile_variants run; V0, V2, V3 and V4 also
-        # carry their SASS counts (LDG.E.128, STG.E.128; HGMMA, UTMALDG,
+        # tb 2048; launches: the profile_variants run; each also carries its
+        # SASS counts (V0 LDG.E.128, STG.E.128; V2-V7 HGMMA, UTMALDG,
         # UTMASTG) and ptxas registers.
         *variant_lines,
     ]

@@ -107,6 +107,18 @@ def test_plain_matches_pallas(name, B, tb):
         assert ok, err
 
 
+@pytest.mark.parametrize('B,tb', [(2, 72), (1, 200)])
+def test_v7_plain_matches_pallas_over_partial_tiles(B, tb):
+    """V7 at function tiles that are not a multiple of the card kernel's
+    64-row tiles (one full tile and a partial one of 8; three full and one
+    of 8), with random halos, against the script's ``k_v7``."""
+    x, w, xp, xn = _inputs(B, tb, seed=B * 1000 + tb)
+    got, want = _call('v7', x, w, xp, xn, tb)
+    assert got.shape == want.shape == (B, 3 * tb, D) and got.dtype == torch.bfloat16
+    ok, err = cv.agree(got, want, TOL)
+    assert ok, err
+
+
 @pytest.mark.parametrize('B,tb', [(1, 8), (2, 24), (2, 2048)])
 def test_v7_with_true_halos_is_k1(B, tb):
     x, w, _, _ = _inputs(B, tb, seed=tb, n_t=3 if tb < 2048 else 2)
@@ -227,20 +239,22 @@ _KERNELS = {
     'copy': '_ZN49_GLOBAL__N__c51223d3_16_conv_variants_cu_22afb78011copy_kernelEPKhPhm',
     **{name: f'_ZN8wgmma_mm15mm_wgmma_kernelILi{n}EEEv14CUtensorMap_stS1_iNS_7FastDivE'
        for name, n in (('mm1f', 1), ('mm3', 3), ('mm3s', 4))},
+    'v7': '_ZN8wgmma_mm15v7_wgmma_kernelE14CUtensorMap_stS0_S0_S0_PK13__nv_bfloat16S3_iNS_7FastDivEi',
 }
 _OPS = {'HGMMA': 'HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n', 'UTMALDG': 'UTMALDG.2D [UR8], [UR4] ;\n',
         'UTMASTG': 'UTMASTG.2D [UR4], [UR6] ;\n', 'LDG.E.128': 'LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n',
         'STG.E.128': 'STG.E.128 desc[UR4][R6.64], R4 ;\n'}
 # Each kernel's opcodes, as counts: V0 one 16-byte load and store, V2 8
-# wgmma k-steps, V3 and V4 24.
+# wgmma k-steps, V3, V4 and V7 24 (V7's 16 stores: 2 for a full tile, 14
+# for the unrolled 8-row boxes of a partial one).
 _COUNTS = {'copy': {'LDG.E.128': 1, 'STG.E.128': 1}, 'mm1f': {'HGMMA': 8, 'UTMALDG': 4, 'UTMASTG': 2},
-           'mm3': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2}, 'mm3s': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2}}
+           'mm3': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2}, 'mm3s': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 2},
+           'v7': {'HGMMA': 24, 'UTMALDG': 8, 'UTMASTG': 16}}
 
 
 def _sass_listing(missing: tuple[str, str] | None, extra: tuple[str, str] | None = None) -> tuple[str, str]:
-    """A ptxas report and a SASS listing of V0's, V2's, V3's and V4's
-    kernels, without ``missing`` = (rung, opcode) and with one more
-    ``extra``."""
+    """A ptxas report and a SASS listing of the ladder's kernels, without
+    ``missing`` = (rung, opcode) and with one more ``extra``."""
     ptxas = ''.join(f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
                     f'    0 bytes stack frame, {4 * (name == "mm3")} bytes spill stores, 0 bytes spill loads\n'
                     f'ptxas info    : Used {80 + i} registers, used 1 barriers\n'
@@ -253,10 +267,11 @@ def _sass_listing(missing: tuple[str, str] | None, extra: tuple[str, str] | None
 
 @pytest.mark.parametrize('missing', [None, 'HGMMA', 'UTMALDG', 'UTMASTG', 'mm3s:HGMMA', 'mm3s:UTMALDG',
                                      'mm3s:UTMASTG', 'copy:LDG.E.128', 'copy:STG.E.128', 'copy:LDG.E.128+',
-                                     'copy:STG.E.128+'])
+                                     'copy:STG.E.128+', 'v7:HGMMA', 'v7:UTMALDG', 'v7:UTMASTG'])
 def test_chip_smoke_requires_wgmma_and_tma_in_the_sass(monkeypatch, missing):
-    """Phase 10's proof of each rung's route: V2, V3 and V4 on wgmma and
-    TMA, V0 on one 16-byte load and store (a vector per thread, no loop).
+    """Phase 10's proof of each rung's route: V2, V3, V4 and V7 on wgmma
+    and TMA (V7 with V3's 24 HGMMA), V0 on one 16-byte load and store (a
+    vector per thread, no loop).
     The counts and ptxas's registers join their kernels-line entries, and a
     kernel without one of its opcodes fails the run (``missing``: an opcode
     V2 lacks, or rung:opcode), as does a V0 with a second load or store
@@ -279,6 +294,7 @@ def test_chip_smoke_requires_wgmma_and_tma_in_the_sass(monkeypatch, missing):
         'mm1f': {'sass_hgmma': 8, 'sass_utmaldg': 4, 'sass_utmastg': 2, 'registers': 81, 'spill_bytes': 0},
         'mm3': {'sass_hgmma': 24, 'sass_utmaldg': 8, 'sass_utmastg': 2, 'registers': 82, 'spill_bytes': 4},
         'mm3s': {'sass_hgmma': 24, 'sass_utmaldg': 8, 'sass_utmastg': 2, 'registers': 83, 'spill_bytes': 0},
+        'v7': {'sass_hgmma': 24, 'sass_utmaldg': 8, 'sass_utmastg': 16, 'registers': 84, 'spill_bytes': 0},
     }
 
 

@@ -459,10 +459,13 @@ def test_transport_forwards_match_the_cpu(card, kind):
 # on each side: tile edges inside the function's tiles of 128 rows; nb a
 # multiple of neither 64 nor 62 (also a copy of 6.6 of V0's 32 KB chunks);
 # and tb 8, an edge on every eighth row, over 1,033 tiles, more than two per
-# warpgroup of every block.
+# warpgroup of every block. Then for V7, whose tiles are cut from each
+# function tile (64 rows, and a partial last tile of tb % 64 rows): function
+# tiles of one full tile and a partial one of 8 (tb 72) and of 3 full tiles
+# and a partial one of 8 (tb 200).
 VARIANT_CASES = [(1, 8, 13), (2, 8, 13), (1, 16, 7), (2, 16, 5), (1, 24, 5), (2, 24, 11), (1, 2048, 3),
                  (2, 2048, 2), (4, 24, 2000), (1, 8, 1), (3, 8, 5), (8, 2048, 40), (1, 128, 4), (3, 40, 7),
-                 (4, 8, 2000)]
+                 (4, 8, 2000), (2, 72, 9), (1, 200, 5)]
 
 
 def _variant_inputs(B, tb, n_t, device, seed, w_scale=0.1):
@@ -506,11 +509,30 @@ def _check_variant(card, name, B, tb, n_t, w_scale=0.1):
         assert ok, err
 
 
-@pytest.mark.parametrize('B,tb,n_t', [(1, 8, 13), (2, 24, 11), (2, 2048, 2), (4, 24, 2000)])
+@pytest.mark.parametrize('B,tb,n_t', [(1, 8, 13), (2, 24, 11), (2, 2048, 2), (4, 24, 2000), (2, 72, 9),
+                                     (8, 2048, 40)])
 def test_v7_with_true_halos_is_k1(card, B, tb, n_t):
     x, w, _, _ = _variant_inputs(B, tb, n_t, card, seed=tb + n_t)
     xp, xn = cv.true_halos(x, tb)
     ok, err = cv.agree(cv.v7(x, xp, xn, w, tb), k1.conv_k3(x, w), 2**-6)
+    assert ok, err
+
+
+def test_v7_stays_right_through_back_to_back_calls(card):
+    """8,000 V7 calls in a row at the ladder's shape (x [8, 153,600, 128],
+    tb 2048), as ``card_clock`` runs it: no fault, and the last output still
+    matches the plain version. Under load a tile's load can land late, so a
+    ring whose stages both consumer warpgroups take in turn lets a parity
+    wait pass early."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((8, 153_600, 128), device=card, generator=gen).bfloat16()
+    w = (torch.randn((3, 128, 128), device=card, generator=gen) * 0.1).bfloat16()
+    xp, xn = cv.true_halos(x, 2048)
+    want = cv.v7_reference(x, xp, xn, w, 2048)
+    for _ in range(8000):
+        got = cv.v7(x, xp, xn, w, 2048)
+    torch.cuda.synchronize()
+    ok, err = cv.agree(got, want, 2**-6)
     assert ok, err
 
 

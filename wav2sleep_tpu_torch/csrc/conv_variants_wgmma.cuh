@@ -1,55 +1,57 @@
-// V2, V3 and V4 of the K1 bisection ladder on Hopper's wgmma and TMA,
-// sm_90a. Included by conv_variants.cu, which dispatches modes 2, 3 and 4
+// V2, V3, V4 and V7 of the K1 bisection ladder on Hopper's wgmma and TMA,
+// sm_90a. Included by conv_variants.cu, which dispatches modes 2, 3, 4 and 7
 // here.
 //
 //   V2 (scripts/profile_pallas_variants.py:85, k_mm1f)   y = bf16(x @ W0)
 //   V3 (scripts/profile_pallas_variants.py:93, k_mm3)    y = bf16(x @ W0 + x @ W1 + x @ W2)
 //   V4 (scripts/profile_pallas_variants.py:106, k_mm3s)  y[i] = bf16(x[i] @ W1
 //        + (i % tb != 0 ? x[i - 1] @ W0 : 0) + (i % tb != tb - 1 ? x[i + 1] @ W2 : 0))
+//   V7 (scripts/profile_pallas_variants.py:136, k_v7)    per function tile F of tb rows,
+//        y = bf16([xp[8F], x[:-1]] @ W0 + x @ W1 + [x[1:], xn[8F]] @ W2)
 //
 // x and y are [batch, nb, 128] bf16, W [taps, 128, 128] bf16 used as x @ W[j]
-// (K1's [taps, C_in, C_out]), f32 sums, one rounding to bf16. All three are
+// (K1's [taps, C_in, C_out]), f32 sums, one rounding to bf16. All four are
 // taken over the flat [batch * nb, 128] rows: V2 and V3 are row-wise, and
-// V4's zero edges at every multiple of tb include the batch edges (nb is a
-// multiple of tb).
+// V4's zero edges and V7's halo rows at every multiple of tb include the
+// batch edges (nb is a multiple of tb). V7's halo rows are row 8F of the
+// flat [batch * (nb / tb) * 8, 128] rows of xp and xn, F = b (nb / tb) + f.
 //
 // What bounds them on an H100 (SXM, 700 W, x [8, 153,600, 128]): bytes. x is
 // read once and y written once, 2 x 1,228,800 x 256 bytes, 0.1878 ms at 3.35
-// TB/s. V3 and V4 do 768 FLOPs a row for 256 bytes read (192 a byte, under
-// the ~295 where the bf16 tensor cores stop being bound by HBM): 0.122 ms at
-// 989 TFLOP/s; V2 a third of that. Measured on an H100 SXM at 700 W
-// (PERF.md), V2 runs at the copy's pace while V3's three products draw
-// the card's power limit, so its SM clock falls from 1.98 GHz to 1.4-1.8:
-// what is left between V3 and V2 is power, not the ring or the feed (a
-// ring of 4 to 10 stages and A from registers measured the same).
+// TB/s (V7's halo rows and W add 0.1879). V3, V4 and V7 do 768 FLOPs a row
+// for 256 bytes read (192 a byte, under the ~295 where the bf16 tensor cores
+// stop being bound by HBM): 0.122 ms at 989 TFLOP/s; V2 a third of that.
+// Measured on an H100 SXM at 700 W (PERF.md), V2 runs at the copy's pace
+// while V3's three products draw the card's power limit, so its SM clock
+// falls from 1.98 GHz to 1.4-1.8: what is left between V3 and V2 is power,
+// not the ring or the feed (a ring of 4 to 10 stages and A from registers
+// measured the same).
 //
 // Why V3 keeps three products: the ladder bisects K1, whose k = 3 conv runs
 // three products of shifted rows. Summing W0 + W1 + W2 first would make V3
 // V2 with other weights and tell nothing about K1's three taps, so V3 chains
 // its 3 x 8 k-steps into one f32 accumulator.
 //
-// Why V4 shifts the f32 products and not the bf16 rows: the ladder measures
-// both sides of K1's tap shift. V7 (conv_variants.cu) feeds shifted input
-// rows to the tensor cores, as K1 does; V4 multiplies the unshifted rows and
-// moves the products one row down (W0) and up (W2), which is what this
-// file's loop would do for K1 if its descriptors could not start at row
-// i + j.
+// The two sides of K1's tap shift: V7 feeds shifted input rows to the tensor
+// cores, as K1 does (tap j of output row i reads row i + j - 1, through a
+// descriptor that starts j rows into a window); V4 multiplies the unshifted
+// rows and moves the f32 products one row down (W0) and up (W2) in
+// registers.
 //
 // Design (hopper-kernels guide section 1):
 // - Persistent blocks, one per SM (grid = min(SMs, tiles)), 384 threads: two
 //   consumer warpgroups and one producer warpgroup, of which one thread
-//   issues TMA. A tile is 64 rows (one wgmma M); local tile k of a block is
-//   tile blockIdx.x + k gridDim.x, in ring stage k % S, consumed by
+//   issues TMA. A tile is at most 64 rows (one wgmma M); local tile k of a
+//   block is tile blockIdx.x + k gridDim.x, in ring stage k % S, consumed by
 //   warpgroup k % 2 (S is even, so each warpgroup owns every other stage).
 //   The two warpgroups run on different tiles, so one's epilogue overlaps
 //   the other's products.
 // - x comes in through a 2-D tensor map over the [batch * nb, 128] rows,
-//   boxes of 64 channels x 64 rows with the 128-byte swizzle (128 bytes is
-//   the widest box row that swizzle takes, so a tile is two boxes). Each
-//   stage has a full mbarrier (one arrival with the tile's 16 KB of
-//   transactions) and an empty one (128 consumer arrivals). Rows past
-//   either end of x are zero-filled by TMA: no window or bounds in the
-//   kernel.
+//   boxes of 64 channels with the 128-byte swizzle (128 bytes is the widest
+//   box row that swizzle takes, so a tile is two boxes). Each stage has a
+//   full mbarrier (one arrival with the tile's transactions) and an empty
+//   one (128 consumer arrivals). Rows past either end of x are zero-filled
+//   by TMA: no window or bounds in the kernel.
 // - The weights come in once per block, by TMA as well, as they lie: W[j] is
 //   [C_in][C_out] with C_out contiguous, i.e. wgmma's B [K][N] N-major, which
 //   16-bit wgmma reads with its transpose bit. A map over the [taps x 128,
@@ -64,10 +66,11 @@
 // - Epilogue: after the stage is released, the warpgroup waits for its
 //   previous TMA store to have read its y buffer, writes its bf16x2 pairs
 //   with the same swizzle (conflict-free), fences the async proxy and one
-//   thread issues two TMA stores; TMA clips rows past the end of y.
+//   thread issues the TMA stores; TMA clips rows past the end of y.
 // - Shared memory: V3 6 x 16 KB ring + 2 x 16 KB y + 96 KB W = 224 KB (plus
 //   alignment and barriers, under the 227 KB limit); V2 8 x 16 KB + 32 KB +
-//   32 KB = 192 KB; V4 4 x 16 KB + 32 KB + 96 KB + 6 KB of exchange rows.
+//   32 KB = 192 KB; V4 4 x 16 KB + 32 KB + 96 KB + 6 KB of exchange rows;
+//   V7 4 x 18 KB + 32 KB + 96 KB = 200 KB.
 // - Tensor maps are encoded on the host per call with
 //   cuTensorMapEncodeTiled, looked up through the runtime's
 //   cudaGetDriverEntryPointByVersion (no -lcuda), and passed as
@@ -98,6 +101,47 @@
 // - The zero edges: the lane's two rows' global index i gives i % tb by
 //   FastDiv (a multiply and a shift), once per tile; the shifted product is
 //   added only where i % tb != 0 (P0) and != tb - 1 (P2).
+//
+// V7's shift, on the same loop (v7_wgmma_kernel):
+// - Tiles aligned to the function's tiles. Each function tile of tb rows is
+//   cut into tb / 64 tiles of 64 rows and, where tb % 64 != 0, one of
+//   tb % 64 rows (a multiple of 8): tile g is sub-tile g % ceil(tb / 64) of
+//   function tile F = g / ceil(tb / 64), by FastDiv. So a function tile's
+//   edge is always the edge of a tile's window, never inside it. Small tb
+//   pays for its partial tiles in wasted products; at tb 2048 there are
+//   none.
+// - A 66-row window per tile: the producer loads rows t0 - 1 .. t0 + 64 as
+//   two boxes of 66 rows x 64 channels (8,448 bytes, each at a 1024-byte
+//   aligned offset, 9 KB apart), 18 KB a stage, a ring of 4.
+// - The shift on the input side: tap j's A descriptor starts at window row
+//   j, 128 j bytes into the stage, which is inside a 128-byte swizzle atom
+//   (1024 bytes); the stride between groups of 8 rows stays 1024 bytes, so
+//   row i of the operand is window row i + j. The swizzle is taken from the
+//   shared-memory address bits (as TMA wrote it: 16-byte chunk c of the row
+//   at address r lies at chunk c ^ ((r >> 7) & 7)), so the descriptor's
+//   matrix base-offset field stays 0, as for V2-V4. Measured on an H100 SXM
+//   (PERF.md): a base offset of (start >> 7) & 7 = j, the PTX ISA's
+//   wording for a start not aligned to the pattern's repeat, read wrong
+//   rows in every tile; 0 reads the right ones, since the boxes, which set
+//   the pattern's phase, are 1024-byte aligned. The k-step still adds 32
+//   bytes inside the atom, so a tile issues V3's 24 wgmma from one window,
+//   with nothing shifted in registers.
+// - The halo rows patched in shared memory: where a tile starts a function
+//   tile, window row 0 (x[t0 - 1], or TMA's zeros before x) is replaced by
+//   row 8F of xp; where it ends one, window row rows + 1 by row 8F of xn.
+//   Lanes 0-15 and 16-31 of the warpgroup's first warp load the two rows'
+//   16-byte chunks from global memory before the tile's full barrier, store
+//   them at their swizzled places (chunk c of box row r at r * 128 + (c ^ (r
+//   & 7)) * 16) once the tile has landed, fence the async proxy, and the
+//   warpgroup meets at its named barrier before its first wgmma. A patched
+//   row is read only by the one output row that needs the halo. No second
+//   TMA write lands on the window's bytes (two asynchronous writes to the
+//   same bytes have no order).
+// - The y store: full tiles by the 64-row TMA store; a partial tile by a
+//   second y map with 8-row boxes, rows / 8 of them per half, so it writes
+//   only its own rows and never the next function tile's, with the same
+//   swizzled y buffer (each 8-row box is one 1024-byte atom of it) and the
+//   same store path.
 
 #pragma once
 
@@ -124,6 +168,17 @@ constexpr int kThreads = (kConsumers + 1) * 128;
 // V4's exchange rows per consumer warpgroup: for each of its two shifts, one
 // f32 row per boundary between its four warps.
 constexpr int kExBytes = 2 * 3 * kD * 4;
+// V7: a window of 66 rows (t0 - 1 .. t0 + 64) per box, each box at a
+// 1024-byte aligned offset (8,448 bytes to 9 KB), a ring of 4 stages (6 do
+// not fit beside W and the y buffers; an odd ring breaks the ring's order,
+// see mm_wgmma_kernel).
+constexpr int kV7Rows = kRows + 2;
+constexpr int kV7BoxBytes = (kV7Rows * 128 + 1023) / 1024 * 1024;
+constexpr int kV7StageBytes = 2 * kV7BoxBytes;
+constexpr int kV7Stages = 4;
+constexpr size_t kV7Smem = 1024 + (size_t)kV7Stages * kV7StageBytes + (size_t)kConsumers * kTileBytes +
+                           3 * (size_t)kWTapBytes + 8 * (2 * kV7Stages + 1);
+static_assert(kV7Smem <= 232448, "V7's ring, y buffers and weights fit in a block's shared memory");
 
 // n / d for 0 <= n < 2^31 by a multiply and a shift (CUTLASS's FastDivmod):
 // tb is a kernel argument, and an integer division by it costs tens of
@@ -136,7 +191,8 @@ struct FastDiv {
   }
 };
 
-inline FastDiv make_fast_div(int d) {  // d >= 2
+inline FastDiv make_fast_div(int d) {  // d >= 2; for d 1, div is not used (callers test d)
+  if (d < 2) return {d, 0, 0};
   int log2 = 31 - __builtin_clz(static_cast<unsigned>(d));
   log2 += (d & (d - 1)) != 0;
   const unsigned p = 31 + log2;
@@ -223,6 +279,8 @@ __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_g
 // Shared-memory descriptor of an operand in the 128-byte swizzle (layout
 // type 1): start address, leading byte offset (K-major: unused; N-major:
 // between the 64-wide halves of N) and 1024 bytes between groups of 8 rows.
+// The matrix base offset is 0: the operands lie in swizzle atoms at
+// 1024-byte aligned addresses, also where a start is not (V7).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t leading = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(leading >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
@@ -265,14 +323,61 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// d (+)= the tile in stage a @ W[j]: 8 k-steps of 16 channels.
+// d (+)= the 64 rows at a @ W[j]: 8 k-steps of 16 channels, the second 64
+// channels BOX bytes after the first.
+template <int BOX = kBoxBytes>
 __device__ __forceinline__ void tap_product(float (&d)[64], uint32_t a, uint32_t ws, int j, bool accumulate) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t a_k = a + (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    const uint32_t a_k = a + (kk / 4) * BOX + (kk % 4) * 32;
     const uint32_t b_k = ws + j * kWTapBytes + kk * 16 * 128;
     wgmma_m64n128k16(d, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), accumulate || kk > 0);
   }
+}
+
+// Thread 0's set-up of a ring of `stages`: full barriers (one arrival and
+// the transactions), empty ones (128 consumer arrivals), the weights' one.
+__device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty, uint32_t w_full, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(full + 8 * s, 1);
+    mbar_init(empty + 8 * s, 128);
+  }
+  mbar_init(w_full, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer thread's load of the TAPS weight taps into ws.
+template <int TAPS>
+__device__ __forceinline__ void load_weights(uint32_t ws, const CUtensorMap* w_map, uint32_t w_full) {
+  mbar_expect_tx(w_full, TAPS * kWTapBytes);
+  for (int j = 0; j < TAPS; ++j)
+    for (int h = 0; h < 2; ++h) tma_load(ws + j * kWTapBytes + h * kWHalfBytes, w_map, w_full, h * kBoxCols, j * kD);
+}
+
+// The epilogue's first half: once this warpgroup's last TMA store has read
+// its y buffer, accumulator row m goes, rounded to bf16, to buffer row
+// m + FIRST (rows outside [0, STEP) are dropped) in the 128-byte swizzle;
+// then the async proxy is fenced for the TMA store. wtid, warp, lane: the
+// thread, its warp in the warpgroup and its lane; bar: the warpgroup's
+// named barrier.
+template <int FIRST, int STEP>
+__device__ __forceinline__ void stage_y(const float (&acc)[64], uint32_t ybuf, int wtid, int warp, int lane, int bar) {
+  const int g = lane >> 2, tq = lane & 3;  // accumulator rows warp * 16 + g (+ 8), columns 8i + 2tq (+ 1)
+  if (wtid == 0) bulk_wait_read();
+  named_bar_sync(bar, 128);
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h + FIRST;
+      if (r < 0 || r >= STEP) continue;
+      const uint32_t addr = ybuf + (i / 8) * kBoxBytes + r * 128 + (((i % 8) ^ (r & 7)) << 4) + tq * 4;
+      const uint32_t pair = pack_bf16x2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pair) : "memory");
+    }
+  }
+  fence_async_shared();
+  named_bar_sync(bar, 128);
 }
 
 // V4: acc[row] += p[row + DIR] (DIR -1: one row down, P0; +1: one row up,
@@ -344,6 +449,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                     __grid_constant__ const CUtensorMap w_map, int n_tiles, FastDiv tb) {
   constexpr int S = stages<MODE>(), TAPS = taps<MODE>(), STEP = out_rows<MODE>();
   constexpr int kFirstRow = MODE == 4 ? -1 : 0;  // global row of tile row 0, less tile * STEP
+  // Each consumer warpgroup owns every other stage, so tiles k and k + S of a
+  // stage go to one warpgroup, in order: its wait on the full barrier for
+  // tile k + S cannot come before tile k's load has landed, which a parity
+  // wait could not tell from tile k + S's.
   static_assert(S % kConsumers == 0, "each consumer warpgroup owns every other stage");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
@@ -356,23 +465,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t w_full = empty + 8 * S;
   const int tid = threadIdx.x, wg = tid / 128;
 
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 128);
-    }
-    mbar_init(w_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) init_barriers(full, empty, w_full, S);
   __syncthreads();
 
   if (wg == kConsumers) {  // the producer: one thread issues every load
     if constexpr (MODE == 4) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == kConsumers * 128) {
-      mbar_expect_tx(w_full, TAPS * kWTapBytes);
-      for (int j = 0; j < TAPS; ++j)
-        for (int h = 0; h < 2; ++h)
-          tma_load(ws + j * kWTapBytes + h * kWHalfBytes, &w_map, w_full, h * kBoxCols, j * kD);
+      load_weights<TAPS>(ws, &w_map, w_full);
       for (int k = 0, tile = blockIdx.x; tile < n_tiles; ++k, tile += gridDim.x) {
         const int s = k % S;
         const int row = tile * STEP + kFirstRow;
@@ -388,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   mbar_wait(w_full, 0);
   const int wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;  // accumulator rows warp * 16 + g (+ 8), columns 8i + 2tq (+ 1)
+  const int g = lane >> 2;  // V4: the lane's accumulator rows are warp * 16 + g (+ 8)
   const uint32_t ybuf = ys + wg * kTileBytes;
   float* ex = ex_all + wg * (kExBytes / 4);
   float acc[64] = {};
@@ -436,27 +535,119 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty + 8 * s);
     }
 
-    // Epilogue: the y buffer is free once this warpgroup's last store has read it.
-    if (wtid == 0) bulk_wait_read();
-    named_bar_sync(1 + wg, 128);
-#pragma unroll
-    for (int i = 0; i < kD / 8; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // Tile row m goes to y buffer row m + kFirstRow: V4 drops its two
-        // overlap rows 0 and 63.
-        const int r = warp * 16 + g + 8 * h + kFirstRow;
-        if (r < 0 || r >= STEP) continue;
-        const uint32_t addr = ybuf + (i / 8) * kBoxBytes + r * 128 + (((i % 8) ^ (r & 7)) << 4) + tq * 4;
-        const uint32_t pair = pack_bf16x2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pair) : "memory");
-      }
-    }
-    fence_async_shared();
-    named_bar_sync(1 + wg, 128);
+    // Epilogue: V4 drops its two overlap rows 0 and 63.
+    stage_y<kFirstRow, STEP>(acc, ybuf, wtid, warp, lane, 1 + wg);
     if (wtid == 0) {
       tma_store(&y_map, ybuf, 0, tile * STEP);
       tma_store(&y_map, ybuf + kBoxBytes, kBoxCols, tile * STEP);
+      bulk_commit();
+    }
+  }
+  if (wtid == 0) bulk_wait();
+}
+
+// V7's tile g: sub-tile g % per_fn of flat function tile F = g / per_fn
+// (per_fn = ceil(tb / 64)), whose first row is F tb + 64 (g % per_fn).
+struct V7Tile {
+  int row;     // flat row of the tile's first output row
+  int rows;    // 64, or tb % 64 for the partial last tile of a function tile
+  int fn;      // F: the halo rows are row 8F of xp and of xn
+  bool first;  // starts a function tile: window row 0 is xp[8F]
+  bool last;   // ends one: window row rows + 1 is xn[8F]
+};
+
+__device__ __forceinline__ V7Tile v7_tile(int g, FastDiv per_fn, int tb) {
+  const int fn = per_fn.d == 1 ? g : per_fn.div(g);
+  const int sub = g - fn * per_fn.d;
+  const bool last = sub == per_fn.d - 1;
+  const int tail = tb % kRows;
+  return {fn * tb + sub * kRows, last && tail ? tail : kRows, fn, sub == 0, last};
+}
+
+// V7 over n_tiles tiles of the function's tiles (the note at the top).
+// x_map: boxes of 66 rows; y_map: 64 rows; y8_map: 8 rows (partial tiles);
+// xp, xn: the flat [batch * (nb / tb) * 8, 128] halo rows.
+__global__ void __launch_bounds__(kThreads, 1)
+    v7_wgmma_kernel(__grid_constant__ const CUtensorMap x_map, __grid_constant__ const CUtensorMap y_map,
+                    __grid_constant__ const CUtensorMap y8_map, __grid_constant__ const CUtensorMap w_map,
+                    const bf16* __restrict__ xp, const bf16* __restrict__ xn, int n_tiles, FastDiv per_fn, int tb) {
+  constexpr int S = kV7Stages;
+  static_assert(S % kConsumers == 0, "each consumer warpgroup owns every other stage (mm_wgmma_kernel)");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ys = ring + S * kV7StageBytes;
+  const uint32_t ws = ys + kConsumers * kTileBytes;
+  const uint32_t full = ws + 3 * kWTapBytes;
+  const uint32_t empty = full + 8 * S;
+  const uint32_t w_full = empty + 8 * S;
+  const int tid = threadIdx.x, wg = tid / 128;
+
+  if (tid == 0) init_barriers(full, empty, w_full, S);
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer: one thread issues every load
+    if (tid == kConsumers * 128) {
+      load_weights<3>(ws, &w_map, w_full);
+      for (int k = 0, tile = blockIdx.x; tile < n_tiles; ++k, tile += gridDim.x) {
+        const int s = k % S;
+        const int row = v7_tile(tile, per_fn, tb).row - 1;  // window row 0
+        mbar_wait(empty + 8 * s, ((k / S) & 1) ^ 1);  // the first round finds every stage free
+        mbar_expect_tx(full + 8 * s, 2 * kV7Rows * 128);
+        tma_load(ring + s * kV7StageBytes, &x_map, full + 8 * s, 0, row);
+        tma_load(ring + s * kV7StageBytes + kV7BoxBytes, &x_map, full + 8 * s, kBoxCols, row);
+      }
+    }
+    return;
+  }
+
+  mbar_wait(w_full, 0);
+  const int wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
+  const uint32_t ybuf = ys + wg * kTileBytes;
+  float acc[64] = {};
+  for (int k = wg, tile = blockIdx.x + wg * gridDim.x; tile < n_tiles;
+       k += kConsumers, tile += kConsumers * gridDim.x) {
+    const int s = k % S;
+    const uint32_t a = ring + s * kV7StageBytes;
+    const V7Tile t = v7_tile(tile, per_fn, tb);
+    // The halo rows' 16-byte chunks, loaded before the wait: thread c < 16
+    // takes chunk c of xp[8F] if the tile starts a function tile, thread
+    // 16 + c chunk c of xn[8F] if it ends one.
+    const bool patch = wtid < 32 && (wtid < 16 ? t.first : t.last);
+    uint4 halo = {};
+    if (patch) halo = __ldg(reinterpret_cast<const uint4*>((wtid < 16 ? xp : xn) + (size_t)8 * t.fn * kD) + wtid % 16);
+    mbar_wait(full + 8 * s, (k / S) & 1);
+    if (t.first || t.last) {
+      if (patch) {
+        const int r = wtid < 16 ? 0 : t.rows + 1, c = wtid % 16;
+        const uint32_t dst = a + (c / 8) * kV7BoxBytes + r * 128 + (((c % 8) ^ (r & 7)) << 4);
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(halo.x), "r"(halo.y), "r"(halo.z),
+                     "r"(halo.w)
+                     : "memory");
+        fence_async_shared();
+      }
+      named_bar_sync(1 + wg, 128);
+    }
+    wgmma_fence();
+    // Tap j reads window rows j .. j + 63: its descriptors start 128 j bytes
+    // into the 1024-byte aligned boxes.
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tap_product<kV7BoxBytes>(acc, a + j * 128, ws, j, j > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_operands(acc);
+    mbar_arrive(empty + 8 * s);
+
+    stage_y<0, kRows>(acc, ybuf, wtid, warp, lane, 1 + wg);
+    if (wtid == 0) {
+      if (t.rows == kRows) {
+        tma_store(&y_map, ybuf, 0, t.row);
+        tma_store(&y_map, ybuf + kBoxBytes, kBoxCols, t.row);
+      } else {  // one 1024-byte atom of the y buffer per 8 rows and half
+        for (int q = 0; q < t.rows / 8; ++q) {
+          tma_store(&y8_map, ybuf + q * 1024, 0, t.row + 8 * q);
+          tma_store(&y8_map, ybuf + kBoxBytes + q * 1024, kBoxCols, t.row + 8 * q);
+        }
+      }
       bulk_commit();
     }
   }
@@ -521,6 +712,30 @@ int launch(const bf16* x, const bf16* w, bf16* y, long rows, int tb, cudaStream_
     return rc;
   const int grid = n_tiles < sms ? n_tiles : sms;
   mm_wgmma_kernel<MODE><<<grid, kThreads, smem, stream>>>(x_map, y_map, w_map, n_tiles, make_fast_div(tb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// V7 over rows = batch * nb flat rows (tb a multiple of 8 that divides
+// them: the caller checks); xp, xn: the flat [rows / tb * 8, 128] halo rows.
+inline int launch_v7(const bf16* x, const bf16* w, const bf16* xp, const bf16* xn, bf16* y, long rows, int tb,
+                     cudaStream_t stream) {
+  if (rows < 1 || rows > (1L << 31) - 2 * kRows) return -1;  // TMA's row coordinate is an int
+  const int per_fn = (tb + kRows - 1) / kRows;
+  const int n_tiles = static_cast<int>(rows / tb * per_fn);
+  const void* kernel = reinterpret_cast<const void*>(v7_wgmma_kernel);
+  EncodeTiled encode = nullptr;
+  CUtensorMap x_map, y_map, y8_map, w_map;
+  int dev = 0, sms = 0, rc = 0;
+  if ((rc = encode_tiled(&encode)) != 0 || (rc = row_map(encode, &x_map, x, rows, kV7Rows)) != 0 ||
+      (rc = row_map(encode, &y_map, y, rows, kRows)) != 0 || (rc = row_map(encode, &y8_map, y, rows, 8)) != 0 ||
+      (rc = row_map(encode, &w_map, w, 3 * kD, kD)) != 0 || (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
+      (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
+      (rc = static_cast<int>(
+           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kV7Smem)))) != 0)
+    return rc;
+  const int grid = n_tiles < sms ? n_tiles : sms;
+  v7_wgmma_kernel<<<grid, kThreads, kV7Smem, stream>>>(x_map, y_map, y8_map, w_map, xp, xn, n_tiles,
+                                                       make_fast_div(per_fn), tb);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """The K1 bisection ladder: ``scripts/profile_pallas_variants.py``'s five
 Pallas kernels as CUDA C++ kernels for sm_90a (``csrc/conv_variants.cu``;
-V2, V3 and V4 in ``csrc/conv_variants_wgmma.cuh``).
+V2, V3, V4 and V7 in ``csrc/conv_variants_wgmma.cuh``).
 
 The JAX script bisects the cost of the k=3 conv kernel at its hot shape
 (B = 8, 153,600 rows of 128 bf16 channels) by timing stripped-down
@@ -28,14 +28,17 @@ no part in them. W uses K1's layout, ``[3, C_in, C_out]`` applied as
 
 The kernels: V0 one 16-byte vector per thread in short-lived blocks of
 1024 threads (at ``Tensor.copy_``'s rate, which no persistent design
-reached); V2, V3 and V4 Hopper's
+reached); V2, V3, V4 and V7 Hopper's
 ``wgmma`` (B read from shared memory once per warpgroup) fed by a TMA ring
 over the flat ``[B * nb, 128]`` rows, with TMA stores of y, in persistent
 blocks. V3 runs its three products into one f32 accumulator rather than
 summing the weights, since the ladder bisects K1's three taps; V4 shifts
 two of them by a row in registers (tiles of 64 rows that write 62, so
-each has the neighbour rows it needs). V7 keeps an ``mma.sync`` template
-built from K1's own main loop.
+each has the neighbour rows it needs). V7 shifts on the input side, as
+K1 does: its tiles are cut from each function tile (64 rows and a partial
+last one of ``tb % 64``), each loaded as a 66-row window with its
+neighbour rows, tap j's operand starting j rows into the window; the halo
+rows are written over the window's edge rows in shared memory.
 
 Like ``ops/conv_k3.py``: for CUDA tensors the wrappers launch the kernel and
 count it in ``LAUNCHES``; for CPU tensors they run the plain versions

@@ -4,14 +4,16 @@
 
 Times the five rungs of ``ops/conv_variants.py`` at K1's hot shape (B = 8
 nights of 1,228,800 samples of 16 channels, packed as x [8, 153,600, 128]
-bf16), each a hand-written kernel of ``csrc/conv_variants.cu``:
+bf16), each a hand-written kernel of ``csrc/conv_variants.cu`` (V2-V7 in
+its header ``csrc/conv_variants_wgmma.cuh``):
 
 - ``copy_ms``: V0, ``y = x``, the floor of one pass over x;
 - ``mm1_f32acc_ms``: V2, one 128 x 128 product on the tensor cores;
 - ``mm3_ms``: V3, three products summed;
 - ``mm3_shift_ms``: V4, three products with the tap shifts done on the f32
   outputs, 0 at every edge of ``--tb`` rows;
-- ``v7_full_ms``: V7, K1's formulation, shifted on the bf16 inputs, with
+- ``v7_full_ms``: V7, K1's formulation, shifted on the bf16 inputs (each
+  tap's operand one row further into a 66-row window of the tile), with
   halo rows of zeros as the JAX script gives it.
 
 Then it checks V7, with the true neighbours as halo rows, against K1
