@@ -83,11 +83,29 @@ Phases (any failure raises, so the script exits non-zero):
    the tiles, ``F.conv1d``), each library call first held against the plain
    version, timed both ways, with the share of the bound and the gaps
    between rungs.
+11. Train: the training step (``wav2sleep_tpu_torch.train``) on ten-hour
+   nights of the flagship, under torch's default TF32 flags (restored for
+   the phase): (a) f32 at the config's batch 16, lossless, masker and flip
+   on, remat on, EMA off: step 1 on the kernel path against the plain path
+   (loss, gradient norm and each parameter's gradient, as Adam's first
+   moment, within ``TRAIN_TOL`` relative), 160 K1 launches
+   a step (forward and recompute), then chained steps timed (compute and
+   e2e, every loss and gradient norm finite) and the peak memory; (b) bf16
+   at batch 8 through ``train_bench.run``, lossless (compute and e2e) and on
+   a batch q8-encoded up front (compute), EMA on, 160 K1 launches a step,
+   and the card's q8 decode of that batch against the CPU's
+   (``Q8_DECODE_ULPS``); (c) step 1 of (b)'s lossless state, batch and seed
+   with kernel statistics on (160 K2 launches) against off, loss and
+   gradient norm within twice the step's bf16 error, and the step times off,
+   on, on, off. Prints a
+   ``train`` JSON line.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The line before the last is a JSON object describing the
-kernels; the last line is ``{"ok": true, "device": {...}}``.
+before it runs. The ``train`` line comes before the ``kernels`` line; the
+line before the last is a JSON object describing the kernels (K1's and K2's
+entries also carry ``train_launches``, per training step); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -529,19 +547,12 @@ def phase_model(torch, k1, k3, bd, layers, wav2sleep):
 
 
 def mulaw_q8(wave: np.ndarray) -> tuple[np.ndarray, float]:
-    """mu-law int8 codes of a finite row against its peak, and the peak.
+    """mu-law int8 codes of a finite row against its peak, and the peak: the
+    q8 transport's encoding (``ops.q8_transport.encode_row_numpy``)."""
+    from wav2sleep_tpu_torch.ops.q8_transport import encode_row_numpy
 
-    The q8 transport's encoding: |code| counts the f32 rounding thresholds
-    2**((k - 0.5) * 8 / 127), k = 1..127, at or below 1 + 255 |x| / peak,
-    and the code takes x's sign.
-    """
-    x = np.asarray(wave, np.float32)
-    peak = np.float32(np.abs(x).max())
-    scale = np.float32(255.0) / (peak if peak > 0 else np.float32(1.0))
-    t = (1.0 + np.minimum(np.abs(x) * scale, np.float32(255.0))).astype(np.float32)
-    thresholds = np.exp2((np.arange(1, 128, dtype=np.float64) - 0.5) * 8.0 / 127).astype(np.float32)
-    k = np.searchsorted(thresholds, t, side='right').astype(np.int8)
-    return np.where(np.signbit(x), -k, k).astype(np.int8), float(peak)
+    codes, peak, _ = encode_row_numpy(wave)
+    return codes, float(peak)
 
 
 class SyntheticQ8Nights:
@@ -1047,6 +1058,165 @@ def phase_variants(torch, F, k1, cv, cuda_build, profile_variants):
     return entries
 
 
+TRAIN_HOURS = 10.0
+# The config's default batch (scripts/config/main.yaml) in f32; bf16 at the
+# serving batch.
+TRAIN_BATCH_F32, TRAIN_BATCH_BF16 = 16, 8
+TRAIN_K, TRAIN_REPS = 4, 2  # chained steps of a marginal timing, repetitions
+# Step 1, kernel path vs plain path: loss, gradient norm and each
+# parameter's gradient, relative. The two read alike to the bit where K1's
+# f32 output equals F.conv1d's (phase 1 prints max|d| per flagship shape):
+# the backward of both paths is autograd of the plain version.
+TRAIN_TOL = 5e-4
+TRAIN_SEED = 11
+# The card's q8 decode against the CPU's, in f32 ulps: torch's CUDA and
+# CPU expm1 differ, and the decode rounds twice more after it.
+Q8_DECODE_ULPS = 2
+
+
+def max_ulps(got, want) -> float:
+    """The largest |got - want| in f32 ulps of ``want`` over its finite
+    values; raises unless the non-finite values are the same."""
+    finite = want.isfinite()
+    if not bool((got.isfinite() == finite).all()) or not bool((got[~finite] == want[~finite]).all()):
+        raise AssertionError('the decodes differ outside the finite values')
+    b = want[finite].abs()
+    ulp = (b.nextafter(b.new_full(b.shape, float('inf'))) - b).double()
+    return float(((got[finite].double() - want[finite].double()).abs() / ulp).max())
+
+
+def phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults):
+    """Phase 11: the training step on full nights, under torch's default TF32
+    flags. (a) f32 at the config's batch, remat on, EMA off: step 1 on the
+    kernel path against the plain path, then timed chained steps; (b) bf16 at
+    batch 8 through ``train_bench.run``, lossless (compute and e2e) and on a
+    q8 batch encoded up front (compute; the card's decode against the CPU's);
+    (c) kernel statistics off against on, step 1 and step times. Returns the
+    ``train`` line and the K1 and K2 launches per step."""
+    S = int(round(TRAIN_HOURS * 120))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    try:
+        out = {'tf32_flags': {'cudnn': tf32_defaults[0], 'matmul': tf32_defaults[1]}}
+        # (a) The config's step, f32.
+        x, y = train_bench.example_batch(TRAIN_BATCH_F32, S, seed=TRAIN_SEED)
+        first, moments, main = {}, {}, None
+        for path in ('kernel', 'plain'):
+            s = train_bench.build('float32', device='cuda', remat=True, ema=False)
+            batch = train_bench.device_batch(x, y, 'lossless', torch.float32, s.device)
+            torch.cuda.reset_peak_memory_stats()
+            with plain_convs(layers, k1) if path == 'plain' else contextlib.nullcontext():
+                zero_counts(k1, k3)
+                _, m = s.step(s.state, batch, TRAIN_SEED)
+                torch.cuda.synchronize()
+                first[path] = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']), launches=counts(k1, k3),
+                                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            # Adam's first moment after step 1: 0.1 of the clipped gradient.
+            moments[path] = [mu.cpu() for mu in s.state.opt_state.mu]
+            if path == 'kernel':
+                main = (s, batch)
+            del s, batch, m
+        rel = {key: abs(first['kernel'][key] - first['plain'][key]) / abs(first['plain'][key])
+               for key in ('loss', 'grad_norm')}
+        rel['gradients'] = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                               for a, b in zip(moments['kernel'], moments['plain']))
+        log(f'train f32 B={TRAIN_BATCH_F32} x {TRAIN_HOURS:g} h (remat, masker, flip, torch\'s default TF32 flags): '
+            f'step 1 kernel path {first["kernel"]}, plain path {first["plain"]}; relative differences loss '
+            f'{rel["loss"]:.3e}, gradient norm {rel["grad_norm"]:.3e}, per-parameter gradients (max |d| over the '
+            f'largest |g|, {len(moments["plain"])} parameters) {rel["gradients"]:.3e} (bound {TRAIN_TOL:g})')
+        del moments
+        if not max(rel.values()) <= TRAIN_TOL:
+            raise AssertionError(f'train f32: the kernel path\'s step 1 disagrees with the plain path: {rel}')
+        if first['kernel']['launches'] != {'K1': 160, 'K2': 0, 'K3': 0} or first['plain']['launches']['K1'] != 0:
+            raise AssertionError(f'train f32: launches per step {first["kernel"]["launches"]} (plain '
+                                 f'{first["plain"]["launches"]}), expected 160 K1 (0)')
+        s, batch = main
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(k1, k3)
+        ms_k, _ = train_bench.chain_ms(s, batch, TRAIN_K, TRAIN_SEED)
+        chained = counts(k1, k3)
+        if chained != {'K1': 160 * TRAIN_K, 'K2': 0, 'K3': 0}:
+            raise AssertionError(f'train f32: launches over {TRAIN_K} chained steps {chained}, expected 160 K1 a step')
+        per_step = {k: v // TRAIN_K for k, v in chained.items()}
+        compute = train_bench.compute_ms(s, batch, TRAIN_K, TRAIN_REPS)
+        del batch
+        e2e = train_bench.e2e_ms(s, x, y, 'lossless', TRAIN_K, TRAIN_REPS)
+        out['f32'] = dict(batch=TRAIN_BATCH_F32, hours=TRAIN_HOURS, remat=True, step1=first, step1_rel_diff=rel,
+                          chain_ms=ms_k, compute_ms_per_step=compute, e2e_ms_per_step=e2e,
+                          nights_per_hour_e2e=TRAIN_BATCH_F32 / e2e * 3.6e6, launches_per_step=per_step,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f'train f32 B={TRAIN_BATCH_F32}: {TRAIN_K} chained steps {ms_k:.1f} ms, compute {compute:.1f} ms/step, '
+            f'e2e {e2e:.1f} ms/step ({out["f32"]["nights_per_hour_e2e"]:.0f} nights/hour); launches per step '
+            f'{per_step}; peak device memory {out["f32"]["peak_gib"]:.2f} GiB')
+        del s, main
+        torch.cuda.empty_cache()
+
+        # (b) bf16 at batch 8, lossless and q8, through the bench.
+        for transport in ('lossless', 'q8'):
+            r = train_bench.run(batch=TRAIN_BATCH_BF16, epochs_per_night=S, precision='bfloat16', transport=transport,
+                                k=TRAIN_K, reps=TRAIN_REPS, device='cuda', e2e=transport == 'lossless')
+            if (r['k1_launches_per_step'], r['k2_launches_per_step']) != (160, 0):
+                raise AssertionError(f'train bf16 {transport}: launches per step {r}')
+            out[f'bf16_{transport}'] = r
+            log(f'train bf16 {transport}: {json.dumps(r)}')
+            torch.cuda.empty_cache()
+        xb, yb = train_bench.example_batch(TRAIN_BATCH_BF16, S)  # (b)'s batch
+        codes = q8.encode_batch(xb)
+        card = q8.dequant_batch({k: tuple(torch.from_numpy(a).cuda() for a in v) for k, v in codes.items()})
+        host = q8.dequant_batch({k: tuple(torch.from_numpy(a) for a in v) for k, v in codes.items()})
+        ulps = max(max_ulps(card[k].cpu(), host[k]) for k in host)
+        out['bf16_q8']['decode_max_ulps_vs_cpu'] = ulps
+        log(f'train q8: the card\'s decode of {TRAIN_BATCH_BF16} nights against the CPU\'s: max {ulps:g} f32 ulps '
+            f'(bound {Q8_DECODE_ULPS})')
+        if not ulps <= Q8_DECODE_ULPS:
+            raise AssertionError(f'train q8: the card\'s decode is {ulps} ulps from the CPU\'s')
+        del card, host, codes
+
+        # (c) Kernel statistics off and on: step 1 on (b)'s initial state,
+        # batch and seed (and the same step in f32 for the bf16 error), then
+        # step times.
+        losses, norms, setups = {}, {}, {}
+        for name, precision, on in (('f32', 'float32', False), ('off', 'bfloat16', False), ('on', 'bfloat16', True)):
+            s = train_bench.build(precision, device='cuda', remat=True)
+            batch = train_bench.device_batch(xb, yb, 'lossless', s.dtype, s.device)
+            with kernel_stats(bd, on):
+                zero_counts(k1, k3)
+                m = s.step(s.state, batch, 0)[1]  # (b)'s seed
+                losses[name], norms[name] = float(m['loss']), float(m['grad_norm'])
+                seen = counts(k1, k3)
+            want = {'K1': 0, 'K2': 160, 'K3': 0} if on else {'K1': 160, 'K2': 0, 'K3': 0}
+            if seen != want:
+                raise AssertionError(f'train bf16, kernel statistics {name}: launches per step {seen}, expected {want}')
+            if on:
+                stats_per_step = seen
+            if name != 'f32':
+                setups[name] = (s, batch)
+            del s, batch
+        bounds = {key: 2 * max(abs(v['off'] - v['f32']), 2.0**-8 * abs(v['f32']))
+                  for key, v in (('loss', losses), ('grad_norm', norms))}
+        times = {'off': [], 'on': []}
+        for name in ('off', 'on', 'on', 'off'):
+            with kernel_stats(bd, name == 'on'):
+                times[name].append(train_bench.compute_ms(*setups[name], TRAIN_K, TRAIN_REPS))
+        out['bf16_kernel_stats'] = dict(step1_loss=losses, step1_grad_norm=norms, launches_per_step_on=stats_per_step,
+                                        compute_ms_per_step=times)
+        log(f'train bf16 B={TRAIN_BATCH_BF16}, kernel statistics: step 1 loss off {losses["off"]:.6f}, on '
+            f'{losses["on"]:.6f}, f32 {losses["f32"]:.6f}; |on - off| {abs(losses["on"] - losses["off"]):.3e} (bound '
+            f'{bounds["loss"]:.3e}); gradient norm off {norms["off"]:.6f}, on {norms["on"]:.6f}, f32 '
+            f'{norms["f32"]:.6f}; |on - off| {abs(norms["on"] - norms["off"]):.3e} (bound {bounds["grad_norm"]:.3e}); '
+            'bounds: twice the larger of |bf16 - f32| and 2^-8 |f32|; compute ms/step off '
+            f'{", ".join(f"{t:.1f}" for t in times["off"])}, on {", ".join(f"{t:.1f}" for t in times["on"])} '
+            '(run off, on, on, off)')
+        for key, v in (('loss', losses), ('grad_norm', norms)):
+            if not abs(v['on'] - v['off']) <= bounds[key]:
+                raise AssertionError(f'train bf16: the kernel-statistics step 1 {key} is outside the bf16 bound')
+        del setups
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return out, per_step['K1'], stats_per_step['K2']
+
+
 def main() -> int:
     import torch
 
@@ -1062,7 +1232,10 @@ def main() -> int:
     from wav2sleep_tpu_torch.ops import conv_variants as cv
     from wav2sleep_tpu_torch.ops import cuda_build
     from wav2sleep_tpu_torch.ops import ema_norm as k3
+    from wav2sleep_tpu_torch.ops import q8_transport as q8
+    from wav2sleep_tpu_torch import train_bench
 
+    tf32_defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -1089,19 +1262,22 @@ def main() -> int:
         phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
     with torch.inference_mode():
         variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
+    train_line, k1_train, k2_train = phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
         # K1 line: bf16, identity phi, 16->16 s1, B=8, T=1,228,800;
-        # launches: the f32 causal serving path.
+        # launches: the f32 causal serving path; train_launches: per
+        # training step of phase 11 (a) (forward and recompute).
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
-             max_abs_err=k1_err, **k1_line),
+             train_launches=k1_train, max_abs_err=k1_err, **k1_line),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
-        # launches: the same path in the kernel-statistics configuration.
+        # launches: the same path in the kernel-statistics configuration;
+        # train_launches: per training step of phase 11 (c).
         dict(name='conv_k3_stats', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=stats_counts['K2'],
-             max_abs_err=k2_err, **k2_line),
+             train_launches=k2_train, max_abs_err=k2_err, **k2_line),
         # K3 line: the first 65,536 samples of one serving batch's 32 rows.
         dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
@@ -1113,6 +1289,7 @@ def main() -> int:
         *variant_lines,
     ]
     log(f'nvidia-smi: {card}')
+    print(json.dumps({'train': train_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

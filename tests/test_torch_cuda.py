@@ -9,6 +9,7 @@ no JAX, so it also runs where JAX is not installed:
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -385,7 +386,7 @@ def test_f32_serving_is_f32_under_torchs_default_flags(card_default_flags, tmp_p
     want = _q16_logits(folder, 'cpu', hours, rows, meta)
     got = _q16_logits(folder, card_default_flags, hours, rows, meta)
     with monkeypatch.context() as m:
-        m.setattr(pipeline, '_full_f32', contextlib.nullcontext)
+        m.setattr(pipeline, 'full_f32', contextlib.nullcontext)
         unrepaired = _q16_logits(folder, card_default_flags, hours, rows, meta)
     assert torch.backends.cudnn.allow_tf32  # the forward restored torch's default
     print(f'f32 q16 logits, card vs CPU under torch\'s default flags: max|d| {float((got - want).abs().max()):.3e} '
@@ -560,3 +561,125 @@ def test_variants_refuse_what_they_do_not_take(card):
                 fn(*_variant_args(name, x, w.half(), xp, xn), 16)
     with pytest.raises(ValueError, match='xp has shape'):
         cv.v7(x, xp[:, :8].contiguous(), xn, w, 16)
+
+
+# ---------------------------------------------------------------- training
+
+
+TRAIN_LR = 1e-3
+# As in tests/test_torch_train.py: an element whose Adam first moment the two
+# devices put more than 10% apart has a gradient within their f32 noise, and
+# Adam (eps 1e-8) moves it by up to lr whatever its size; such elements are
+# held to Adam's reach after one step, 2 lr (plus rounding), and are at most
+# 1% of all.
+NOISY_MOMENT, NOISY_SHARE = 0.1, 0.01
+
+
+def _train_setup(device, remat=True, dropout=0.0, masker=None, flip=False, compute_dtype=None):
+    """A narrow flagship (feature_dim 32, channels 16-32: all 80 k3 convs
+    on K1) with seeded weights, its state and its step (AdamW at lr 1e-3,
+    optax's b1, b2 and eps)."""
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+    from wav2sleep_tpu_torch.train import step as tstep
+
+    cfg = flagship_config(32, 32)
+    cfg['encoders']['remat'] = remat
+    cfg['epoch_mixer']['dropout'] = cfg['sequence_mixer']['dropout'] = dropout
+    model = build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    opt = tstep.make_optimizer(TRAIN_LR)
+    state = tstep.init_train_state(model, opt, ema=True)
+    step = tstep.make_train_step(model, opt, 4, masker=masker, flip_polarity=flip, ema_decay=0.99,
+                                 compute_dtype=compute_dtype)
+    return state, step
+
+
+def _train_batch(device, B=2, S=2, seed=0):
+    from wav2sleep_tpu_torch import train_bench
+
+    x, y = train_bench.example_batch(B, S, seed)
+    x['PPG'][1] = -np.inf
+    return {k: torch.from_numpy(v).to(device) for k, v in x.items()}, torch.from_numpy(y).to(device)
+
+
+def test_f32_train_step_is_f32_under_torchs_default_flags(card_default_flags, monkeypatch):
+    """ROADMAP §C.5: one f32 step on the card, kernels and remat on, under
+    torch's default flags, against the same step on the CPU (plain
+    versions): loss, gradient norm and the updated parameters."""
+    from wav2sleep_tpu_torch.train import step as tstep
+
+    out = {}
+    for name, device in (('cpu', 'cpu'), ('card', card_default_flags), ('card without the switch', card_default_flags)):
+        with monkeypatch.context() as m:
+            if name == 'card without the switch':
+                m.setattr(tstep, 'full_f32', contextlib.nullcontext)
+            state, step = _train_setup(device)
+            _, metrics = step(state, _train_batch(device), 0)
+            out[name] = (float(metrics['loss']), float(metrics['grad_norm']),
+                         {k: p.detach().cpu() for k, p in state.params.items()},
+                         {k: m.cpu() for k, m in zip(state.params, state.opt_state.mu)})
+    assert torch.backends.cudnn.allow_tf32  # the step restored torch's default
+    (l0, g0, p0, m0), (l1, g1, p1, m1), (l2, g2, _, _) = out.values()
+    noisy = {k: (m1[k] - m0[k]).abs() > NOISY_MOMENT * m0[k].abs() for k in m0}
+    n, total = sum(int(v.sum()) for v in noisy.values()), sum(v.numel() for v in noisy.values())
+    d_params = max(float(torch.where(noisy[k], 0.0, p1[k] - p0[k]).abs().max()) for k in p0)
+    d_noisy = max(float(torch.where(noisy[k], p1[k] - p0[k], 0.0).abs().max()) for k in p0)
+    print(f'f32 train step, card vs CPU under torch\'s default flags: loss {abs(l1 - l0):.3e}, grad norm '
+          f'{abs(g1 - g0):.3e}, params {d_params:.3e} outside the {n} of {total} elements whose Adam moment the '
+          f'devices put over {NOISY_MOMENT:g} apart, {d_noisy:.3e} inside them (without the step\'s TF32 switch: '
+          f'loss {abs(l2 - l0):.3e}, grad norm {abs(g2 - g0):.3e}) on {torch.cuda.get_device_name(0)}')
+    assert abs(l1 - l0) <= 5e-4 * (1 + abs(l0)) and abs(g1 - g0) <= 5e-4 * (1 + abs(g0))
+    for k in p0:
+        torch.testing.assert_close(torch.where(noisy[k], p0[k], p1[k]), p0[k], atol=5e-4, rtol=5e-4)
+    assert d_noisy <= 2.01 * TRAIN_LR and n <= NOISY_SHARE * total
+
+
+@contextlib.contextmanager
+def _kernel_stats(on):
+    bd.KERNEL_STATS = on
+    try:
+        yield
+    finally:
+        bd.KERNEL_STATS = None
+
+
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
+def test_train_step_launches_k1_twice_per_conv_with_remat(card, compute_dtype):
+    """A forward launches K1 80 times; a step with remat 160 (the forward
+    and the recompute), without remat 80; with kernel statistics K2 160."""
+    batch = _train_batch(card)
+    seen = {}
+    for remat, stats in ((True, False), (False, False), (True, True)):
+        with _kernel_stats(stats):
+            state, step = _train_setup(card, remat=remat, compute_dtype=compute_dtype)
+            k1.LAUNCHES = k1.STATS_LAUNCHES = 0
+            _, m = step(state, batch, 0)
+            torch.cuda.synchronize()
+        seen[remat, stats] = (k1.LAUNCHES, k1.STATS_LAUNCHES)
+        assert bool(torch.isfinite(m['loss'])) and bool(torch.isfinite(m['grad_norm']))
+    assert seen == {(True, False): (160, 0), (False, False): (80, 0), (True, True): (0, 160)}
+
+
+def test_train_step_is_seeded_on_the_card(card):
+    """Dropout, flip and masker on: one seed gives one loss twice, another
+    seed another; the card's global RNG stream is left as it was."""
+    from wav2sleep_tpu_torch import train_bench
+    from wav2sleep_tpu_torch.train.masker import SignalMasker
+
+    batch = _train_batch(card, B=4)
+    losses = []
+    for seed in (3, 3, 4):
+        masker = SignalMasker(train_bench.DROPOUTS, train_bench.BACKUPS)
+        state, step = _train_setup(card, dropout=0.1, masker=masker, flip=True)
+        before = torch.cuda.get_rng_state()
+        losses.append(float(step(state, batch, seed)[1]['loss']))
+        assert torch.equal(torch.cuda.get_rng_state(), before)
+    assert losses[0] == losses[1] != losses[2]
+
+
+def test_train_bench_runs_on_the_card_by_default(card, capsys):
+    from wav2sleep_tpu_torch import train_bench
+
+    train_bench.main(['--batch', '1', '--epochs-per-night', '2', '--feature-dim', '16', '--k', '2', '--reps', '1'])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line['device'] == torch.cuda.get_device_name(0) and line['card']
+    assert line['k1_launches_per_step'] == 160 and line['peak_gib'] > 0 and np.isfinite(line['loss'])

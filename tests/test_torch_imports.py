@@ -2,7 +2,8 @@
 neither JAX, flax, optax, pandas, pyarrow nor yaml: the port and
 chip_smoke.py import, and drive their host paths (the native library, the
 EDF reader and writer, every extractor, weight conversion, a checkpoint
-folder and the serving CLI on the CPU), with all of those unavailable. No
+folder, the serving CLI and the training bench on the CPU), with all of
+those unavailable. No
 file of the port names them in an import, at module level or inside a
 function."""
 
@@ -17,7 +18,7 @@ PORT = ROOT / 'wav2sleep_tpu_torch'
 BLOCKED = ('wav2sleep_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml')
 
 _PROBE = f'''
-import importlib, pkgutil, sys, tempfile
+import importlib, importlib.machinery, pkgutil, sys, tempfile
 import numpy as np
 BLOCKED = {BLOCKED!r}
 for name in list(sys.modules):
@@ -25,10 +26,20 @@ for name in list(sys.modules):
         del sys.modules[name]
 
 class Blocker:
+    # A blocked name is found, and its loading fails: torch._dynamo (which
+    # torch.utils.checkpoint imports) probes importlib.util.find_spec for
+    # optional modules, pandas among them, and takes a finder's exception
+    # for a fault.
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
-            raise ImportError('blocked: ' + name)
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        raise ImportError('blocked: ' + spec.name)
+
+    def exec_module(self, module):
+        raise ImportError('blocked: ' + module.__name__)
 
 sys.meta_path.insert(0, Blocker())
 import wav2sleep_tpu_torch
@@ -75,6 +86,12 @@ with tempfile.TemporaryDirectory() as d:
 # The profiling entry point on the CPU (the ladder's plain versions and K1's).
 from wav2sleep_tpu_torch import profile_variants
 assert profile_variants.run(B=1, nb=16, tb=8, k=2, reps=1, device='cpu')['device'] == 'cpu'
+# The training entry point on the CPU: the step, the masker, AdamW and the
+# q8 transport, with optax and the JAX package unavailable.
+from wav2sleep_tpu_torch import train_bench
+line = train_bench.run(batch=1, epochs_per_night=1, feature_dim=16, precision='float32', transport='q8', k=2,
+                       reps=1, device='cpu', e2e=False)
+assert line['device'] == 'cpu' and np.isfinite(line['loss'])
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('IMPORTED', len(mods), 'LEAKED', leaked)
 '''
@@ -88,13 +105,15 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 23, proc.stdout  # every module of the package was reached
+    assert n >= 31, proc.stdout  # every module of the package was reached
 
 
 def _port_files():
     files = [p for p in PORT.rglob('*') if p.suffix in ('.py', '.cu', '.cpp')] + [ROOT / 'chip_smoke.py']
     assert len(files) >= 20
-    for name in ('csrc/conv_variants.cu', 'ops/conv_variants.py', 'profile_variants.py'):
+    for name in ('csrc/conv_variants.cu', 'ops/conv_variants.py', 'profile_variants.py', 'ops/q8_transport.py',
+                 'train/step.py', 'train/masker.py', 'train/metrics.py', 'train/scheduler.py', 'train_bench.py',
+                 'profile_train.py'):
         assert PORT / name in files, name
     return files
 

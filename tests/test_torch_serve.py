@@ -94,7 +94,9 @@ def test_yaml_reader_skips_comments():
 
 def test_instantiate_reads_both_spellings_and_refuses_what_is_not_ported():
     small = instantiate.wav2sleep_arguments(CONFIGS['small'])
-    assert small == instantiate.wav2sleep_arguments(CONFIGS['jax_spelling'])  # remat dropped
+    jax_spelling = instantiate.wav2sleep_arguments(CONFIGS['jax_spelling'])
+    assert jax_spelling['encoders'].pop('remat') is True  # the training switch goes through
+    assert small == jax_spelling
     assert small['signal_map'] == SMALL_CFG['signal_map']
     assert instantiate.model_family({'_target_': 'wav2sleep.models.ppgnet.SleepPPGNet'}) == 'ppgnet'
 

@@ -39,7 +39,7 @@ def load_model(folder: str, precision: str = 'float32', device: torch.device | s
     dtype.
 
     Full f32 holds in the serving pipelines' forwards only: they switch
-    cuDNN's and the matmuls' TF32 off for each call (``pipeline._full_f32``).
+    cuDNN's and the matmuls' TF32 off for each call (``utils.full_f32``).
     Calling the returned model directly runs under the process's flags,
     which torch defaults to TF32 convs on the card. The flags are
     process-wide and not locked: an f32 forward that ends in one thread

@@ -62,9 +62,7 @@ def wav2sleep_arguments(cfg: dict) -> dict:
     enc = _section(cfg, 'signal_encoders', 'SignalEncoders')
     mix = _section(cfg, 'epoch_mixer', 'MultiModalAttentionEmbedder')
     seq = _section(cfg, 'sequence_mixer', 'SequenceCNN')
-    # remat is a JAX training switch; input_dim a torch-only argument of
-    # the reference.
-    enc.pop('remat', None)
+    # input_dim is a torch-only argument of the reference.
     enc.pop('input_dim', None)
     signal_map = _signal_map(enc.pop('signal_map'))
     seq.setdefault('norm', 'batch')  # the JAX package's default

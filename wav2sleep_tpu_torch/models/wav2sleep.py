@@ -24,6 +24,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..settings import COLS_TO_SAMPLES_PER_EPOCH
 from ..utils import resolve_device
@@ -38,6 +39,12 @@ class SignalEncoder(nn.Module):
 
     ``log2(samples_per_epoch) - 2`` stride-2 blocks reduce each epoch to 4
     positions; channels double every other block up to ``max_channels``.
+
+    ``remat`` recomputes each block's activations in the backward pass
+    instead of keeping them (``torch.utils.checkpoint``), when the module is
+    training and grad is enabled; only the blocks' inputs stay live. The
+    early ECG/PPG blocks hold [B, ~1.2M, C] maps, so this is what lets a
+    full-night batch train in the card's memory. Serving ignores it.
     """
 
     def __init__(
@@ -52,6 +59,7 @@ class SignalEncoder(nn.Module):
         chunk_causal: bool = True,
         output_norm: bool = False,
         use_residual: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         if causal:
@@ -59,6 +67,7 @@ class SignalEncoder(nn.Module):
         if samples_per_epoch & (samples_per_epoch - 1):
             raise ValueError(f'samples_per_epoch must be a power of 2, got {samples_per_epoch}')
         self.samples_per_epoch = samples_per_epoch
+        self.remat = remat
         num_blocks = int(math.log2(samples_per_epoch)) - 2
         channels = [min(initial_channels * 2 ** (i // 2), max_channels) for i in range(num_blocks)]
         self.epoch_dim = channels[-1] * 4
@@ -84,8 +93,14 @@ class SignalEncoder(nn.Module):
         if T % self.samples_per_epoch:
             raise ValueError(f'Input length {T} must be divisible by samples_per_epoch={self.samples_per_epoch}.')
         y = x_BT[:, :, None]
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.cnn:
-            y = block(y)
+            # The blocks draw no random numbers, so the recompute needs no
+            # saved RNG state. It reads the module's own parameters: under a
+            # bf16 ``functional_call`` those are the f32 masters, and every
+            # conv casts its weights to its input's dtype, so the recomputed
+            # values are the forward's.
+            y = checkpoint(block, y, use_reentrant=False, preserve_rng_state=False) if remat else block(y)
         # [B, 4S, C] -> [B, S, 4C]: the reference's transpose + reshape order.
         y = y.reshape(B, T // self.samples_per_epoch, self.epoch_dim)
         # Promote to the parameters' dtype, as the JAX package's Dense does:
@@ -110,6 +125,7 @@ class SignalEncoders(nn.Module):
         max_channels: int = 128,
         output_norm: bool = False,
         use_residual: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         self.signal_map = dict(signal_map)
@@ -121,7 +137,7 @@ class SignalEncoders(nn.Module):
                 raise ValueError(f"Column {signal_name} unrecognised. Doesn't have a sampling rate.")
             self.encoders[encoder_name] = SignalEncoder(
                 feature_dim, COLS_TO_SAMPLES_PER_EPOCH[signal_name], activation, norm,
-                initial_channels, max_channels, causal, chunk_causal, output_norm, use_residual,
+                initial_channels, max_channels, causal, chunk_causal, output_norm, use_residual, remat,
             )
         self.sig_to_embedding_idx = {sig: i for i, sig in enumerate(sorted(self.signal_map))}
         self.embedder = nn.Embedding(len(self.signal_map), feature_dim) if embed_signals else None

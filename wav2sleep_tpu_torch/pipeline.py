@@ -56,7 +56,7 @@ from .settings import (
     COLS_TO_SAMPLES_PER_EPOCH,
     EPOCH_SECONDS,
 )
-from .utils import resolve_device, stop_aware_put
+from .utils import full_f32, resolve_device, stop_aware_put
 
 logger = logging.getLogger(__name__)
 
@@ -438,19 +438,6 @@ def compute_resample_anchors(fs: float, step: float, n_grid: int):
     return base_int, base_frac, np.float32(ratio)
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """cuDNN convs and matmuls in full f32 for the block: torch's default
-    runs cuDNN convs in TF32, 10 mantissa bits. The flags are process-wide,
-    so they are set for the block only and restored after it."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _serving_forward(fn: Callable, precision: str) -> Callable:
     """``fn`` under inference mode, and in full f32 for ``precision='float32'``."""
     f32 = precision != 'bfloat16'
@@ -458,7 +445,7 @@ def _serving_forward(fn: Callable, precision: str) -> Callable:
     @functools.wraps(fn)
     @torch.inference_mode()
     def forward(*args):
-        with _full_f32() if f32 else contextlib.nullcontext():
+        with full_f32() if f32 else contextlib.nullcontext():
             return fn(*args)
 
     return forward

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import subprocess
 
@@ -19,6 +20,19 @@ def stop_aware_put(q, stop, item, poll: float = 0.2) -> bool:
         except queue.Full:
             continue
     return False
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convs and matmuls in full f32 for the block: torch's default
+    runs cuDNN convs in TF32, 10 mantissa bits. The flags are process-wide,
+    so they are set for the block only and restored after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
