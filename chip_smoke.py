@@ -99,12 +99,34 @@ Phases (any failure raises, so the script exits non-zero):
    gradient norm within twice the step's bf16 error, and the step times off,
    on, on, off. Prints a
    ``train`` JSON line.
+12. Families: the other model kinds at full width. (a) SleepPPG-Net
+   (``scripts/config/model/ppgnet.yaml``: batch norm, leaky, dropout 0.2)
+   on ten-hour nights of seeded N(0, 1) PPG, f32 at the config's batch 16
+   under torch's default TF32 flags, flip on: step 1 with remat off and on
+   from the same weights, batch and seed (loss, gradient norm, each
+   parameter's gradient as Adam's first moment and every running statistic
+   within ``TRAIN_TOL`` relative; each batch norm updated once), then
+   chained steps timed and the peak memory, the eval step on the running
+   statistics (parameters and EMA), and ``save_checkpoint_folder`` ->
+   ``load_model(precision='bfloat16')``: a B=8 bf16 forward within
+   ``FAMILY_BF16_TOL`` of the f32 eval logits; no K1/K2 launch. (b) The
+   flagship with ``causal: true`` (conv-causal encoders and sequence mixer)
+   in f32 through ``StreamingPipeline(normalize='causal')`` on phase 8's EDF
+   nights: one K3 launch a batch, no K1, valid hypnograms, recordings/hour;
+   then causality on the card: the first half of a night gives the first
+   half of the whole night's logits (layer-norm encoders; the config's
+   instance norm spans the night, and its |d| is printed). (c) A
+   chunk-causal flagship with the default (batch-norm) sequence mixer and a
+   post-norm epoch mixer, from a checkpoint folder in bf16, one batch of
+   the EDF nights: valid hypnograms, no K1. Prints a ``families`` JSON line
+   and the phase's wall time.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train`` line comes before the ``kernels`` line; the
+before it runs. The ``train`` and ``families`` lines come before the ``kernels`` line; the
 line before the last is a JSON object describing the kernels (K1's and K2's
-entries also carry ``train_launches``, per training step); the last line is
+entries also carry ``train_launches``, per training step, and K3's
+``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1217,6 +1239,219 @@ def phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults):
     return out, per_step['K1'], stats_per_step['K2']
 
 
+# Phase 12: the other model families. SleepPPG-Net as scripts/config/model/
+# ppgnet.yaml gives it (4 classes) at the config's f32 batch.
+PPGNET_CFG = {'_target_': 'wav2sleep.models.ppgnet.SleepPPGNet', 'n_classes': 4, 'norm': 'batch',
+              'feature_dim': 128, 'activation': 'leaky', 'dropout': 0.2, 'remat': True}
+PPGNET_BATCH, PPGNET_SERVE_BATCH = 16, 8
+FAMILY_K, FAMILY_REPS = 3, 2  # chained steps of a marginal timing, repetitions
+FAMILY_SEED = 13
+# bf16 SleepPPG-Net logits (parameters and running statistics cast by
+# load_model) against the f32 eval logits: |bf16 - f32| <= FAMILY_BF16_TOL
+# * (max |f32| + rms(f32)). 2**-8 is one bf16 rounding of a unit value;
+# the forward has 58 layers, each rounding its output once.
+FAMILY_BF16_TOL = 2.0**-3
+FAMILY_F32_TOL = 5e-4  # f32 logits, atol and rtol (PERF.md §2)
+
+
+def family_config(wav2sleep, causal: bool, chunk_causal: bool, enc_norm: str = 'instance',
+                  seq_norm: str | None = 'layer', norm_first: bool = True) -> dict:
+    """``build_wav2sleep``'s arguments of the flagship at full width with
+    ``causal`` encoders and sequence mixer (scripts/config/model/
+    wav2sleep.yaml with ``causal: true``); ``seq_norm`` None is the JAX
+    package's default, batch norm."""
+    cfg = wav2sleep.flagship_config()
+    cfg['encoders'].update(causal=causal, chunk_causal=chunk_causal, norm=enc_norm)
+    cfg['sequence_mixer'].update(causal=causal, norm=seq_norm or 'batch')
+    cfg['epoch_mixer']['norm_first'] = norm_first
+    return cfg
+
+
+def phase_families(torch, k1, k3, wav2sleep, pipeline, train_bench, card, fps, work, tf32_defaults):
+    """Phase 12: (a) SleepPPG-Net's training step at f32 B=16 x 10 h under
+    torch's default TF32 flags, remat on against off, chained steps, the
+    eval step, and a bf16 checkpoint forward; (b) the causal flagship served
+    f32 with causal normalization on the EDF nights, and causality on the
+    card; (c) a chunk-causal flagship with a batch-norm sequence mixer and a
+    post-norm epoch mixer from a checkpoint folder in bf16. Returns the
+    ``families`` line and K3's launches on (b)'s path."""
+    from wav2sleep_tpu_torch import api, checkpoint, instantiate
+    from wav2sleep_tpu_torch.models.ppgnet import SleepPPGNet, build_ppgnet
+    from wav2sleep_tpu_torch.train import step as tstep
+    from wav2sleep_tpu_torch.train.metrics import cross_entropy_ignore_index
+    from wav2sleep_tpu_torch.utils import full_f32
+
+    t_phase = time.time()
+    dev = torch.device('cuda')
+    n_epochs = int(round(HOURS * 120))
+    out = {}
+
+    # (a) SleepPPG-Net, f32, the config's batch, under torch's default flags.
+    rng = np.random.default_rng(FAMILY_SEED)
+    x = torch.from_numpy(rng.normal(size=(PPGNET_BATCH, SleepPPGNet.INPUT_LENGTH)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(-1, 4, size=(PPGNET_BATCH, n_epochs)).astype(np.float32)).to(dev)
+    kwargs = {k: v for k, v in PPGNET_CFG.items() if k != '_target_'}
+
+    def setup(remat: bool):
+        model = build_ppgnet(torch.Generator().manual_seed(0), **{**kwargs, 'remat': remat}).to(dev)
+        opt = tstep.make_optimizer(1e-3, weight_decay=1e-4, grad_clip=1.0)
+        state = tstep.init_train_state(model, opt, ema=True)
+        step = tstep.make_train_step(model, opt, 4, flip_polarity=True, ema_decay=0.9999, family='ppgnet')
+        return model, train_bench.Setup(state, step, dev, torch.float32)
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    try:
+        first = {}
+        for remat in (False, True):
+            model, s = setup(remat)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(k1, k3)
+            _, m = s.step(s.state, ({'PPG': x}, y), FAMILY_SEED)
+            torch.cuda.synchronize()
+            first[remat] = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']), launches=counts(k1, k3),
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                mu=[mu.cpu() for mu in s.state.opt_state.mu],
+                                stats={k: v.cpu().clone() for k, v in s.state.batch_stats.items()})
+            if not remat:
+                del model, s, m
+                torch.cuda.empty_cache()
+        off, on = first[False], first[True]
+        rel = {key: abs(on[key] - off[key]) / abs(off[key]) for key in ('loss', 'grad_norm')}
+        rel['gradients'] = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                               for a, b in zip(on['mu'], off['mu']))
+        rel['running_stats'] = max(float((on['stats'][k].float() - v.float()).abs().max() / v.float().abs().max())
+                                   for k, v in off['stats'].items() if not k.endswith('num_batches_tracked'))
+        tracked = {int(v) for k, v in on['stats'].items() if k.endswith('num_batches_tracked')}
+        log(f'families (a) SleepPPG-Net f32 B={PPGNET_BATCH} x {HOURS:g} h (flip, dropout 0.2, torch\'s default TF32 '
+            f'flags): step 1 remat off loss {off["loss"]:.6f}, gradient norm {off["grad_norm"]:.4f}, peak '
+            f'{off["peak_gib"]:.2f} GiB; remat on {on["loss"]:.6f}, {on["grad_norm"]:.4f}, {on["peak_gib"]:.2f} GiB; '
+            f'relative differences {rel} (bound {TRAIN_TOL:g}); batch norms updated {tracked} time(s); launches '
+            f'{on["launches"]}')
+        if not max(rel.values()) <= TRAIN_TOL:
+            raise AssertionError(f'families (a): remat on and off disagree at step 1: {rel}')
+        if tracked != {1}:
+            raise AssertionError(f'families (a): running statistics updated {tracked} times in one step')
+        if on['launches'] != {'K1': 0, 'K2': 0, 'K3': 0} or off['launches'] != on['launches']:
+            raise AssertionError(f'families (a): SleepPPG-Net launched {on["launches"]}, {off["launches"]}')
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(k1, k3)
+        chain, metrics = train_bench.chain_ms(s, ({'PPG': x}, y), FAMILY_K, FAMILY_SEED)
+        compute = train_bench.compute_ms(s, ({'PPG': x}, y), FAMILY_K, FAMILY_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        chained = counts(k1, k3)
+        losses = [float(mm['loss']) for mm in metrics]
+        evaluate = tstep.make_eval_step(model, 4, 'ppgnet')
+        ev = evaluate(s.state.params, ({'PPG': x}, y))
+        ev_ema = evaluate(s.state.ema_params, ({'PPG': x}, y))
+        with torch.inference_mode(), full_f32():
+            want = model.eval()(x[:PPGNET_SERVE_BATCH]).float()
+        out['ppgnet'] = dict(batch=PPGNET_BATCH, hours=HOURS, step1={'remat_off': {k: off[k] for k in (
+            'loss', 'grad_norm', 'peak_gib')}, 'remat_on': {k: on[k] for k in ('loss', 'grad_norm', 'peak_gib')}},
+            step1_rel_diff=rel, chain_ms=chain, compute_ms_per_step=compute, peak_gib=peak, losses=losses,
+            launches=chained, eval_loss=float(ev['loss']), eval_loss_ema=float(ev_ema['loss']))
+        log(f'families (a) SleepPPG-Net: {FAMILY_K} chained steps {chain:.1f} ms, compute {compute:.1f} ms/step, '
+            f'peak device memory {peak:.2f} GiB, losses {losses}; eval step on the running statistics loss '
+            f'{float(ev["loss"]):.6f} (EMA {float(ev_ema["loss"]):.6f}); launches {chained}')
+        if chained != {'K1': 0, 'K2': 0, 'K3': 0} or not all(np.isfinite(losses)) \
+                or not (np.isfinite(float(ev['loss'])) and np.isfinite(float(ev_ema['loss']))):
+            raise AssertionError(f'families (a): launches {chained}, losses {losses}, eval {float(ev["loss"])}')
+        folder = os.path.join(work, 'ppgnet')
+        checkpoint.save_checkpoint_folder(folder, PPGNET_CFG, model.state_dict())
+        del s, model, metrics
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    loaded = api.load_model(folder, precision='bfloat16')
+    floats = {v.dtype for v in loaded.state_dict().values() if v.is_floating_point()}
+    zero_counts(k1, k3)
+    with torch.inference_mode():
+        got = loaded(x[:PPGNET_SERVE_BATCH].bfloat16()).float()
+    bf16_launches = counts(k1, k3)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max() + want.square().mean().sqrt())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    preds = got.argmax(-1)
+    log(f'families (a) SleepPPG-Net checkpoint folder -> load_model(bfloat16): B={PPGNET_SERVE_BATCH} forward logits '
+        f'{tuple(got.shape)}, max |bf16 - f32 eval| {err:.4e} (bound {FAMILY_BF16_TOL:g} x {scale:.4f}), argmax '
+        f'agreeing {agree:.4f}; launches {bf16_launches}')
+    out['ppgnet'].update(bf16_max_abs_diff=err, bf16_scale=scale, bf16_argmax_agreement=agree)
+    if floats != {torch.bfloat16} or got.shape != (PPGNET_SERVE_BATCH, n_epochs, 4) \
+            or not bool(torch.isfinite(got).all()) or int(preds.min()) < 0 or int(preds.max()) > 3 \
+            or not err <= FAMILY_BF16_TOL * scale or bf16_launches['K1'] != 0:
+        raise AssertionError(f'families (a): the bf16 checkpoint forward failed its checks ({floats}, {err})')
+    del loaded, got, want, x, y
+    torch.cuda.empty_cache()
+
+    # (b) The causal flagship, f32 with causal normalization on the EDF nights.
+    cfg = family_config(wav2sleep, causal=True, chunk_causal=False)
+    model = wav2sleep.build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    pipe = pipeline.StreamingPipeline(model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS,
+                                      precision='float32', normalize='causal', device='cuda')
+    pipe.warmup()
+    batches = -(-NIGHTS // BATCH)
+    zero_counts(k1, k3)
+    walls, served = timed_passes(torch, pipe, fps, 1)
+    causal_launches = counts(k1, k3)
+    check_hypnograms(served, fps, n_epochs, 'families (b)')
+    rate = 3600 * NIGHTS / walls[0]
+    log(f'families (b) causal flagship f32, normalize=causal, batch {BATCH}: 1 pass of {NIGHTS} EDF nights x '
+        f'{HOURS:g} h in {walls[0]:.3f} s, {rate:.0f} recordings/hour on {card}; launches {causal_launches}')
+    if causal_launches != {'K1': 0, 'K2': 0, 'K3': batches}:
+        raise AssertionError(f'families (b): launches {causal_launches}, expected K3 {batches} and no K1')
+    del pipe
+    # Causality on the card: the first half of a night gives the first half
+    # of the whole night's logits. Layer-norm encoders: the config's
+    # instance norm takes its statistics over the whole night (printed).
+    gen = torch.Generator(device='cuda').manual_seed(FAMILY_SEED)
+    night = {c: torch.randn(1, grid_length(c, HOURS), device=dev, generator=gen) for c in SIGNALS}
+    half = {c: v[:, : v.shape[1] // 2] for c, v in night.items()}
+    prefix = {}
+    for name, norm in (('layer', 'layer'), ('instance', 'instance')):
+        m = wav2sleep.build_wav2sleep(**family_config(wav2sleep, True, False, enc_norm=norm),
+                                      generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        with torch.inference_mode(), full_f32():
+            full_logits, half_logits = m(night), m(half)
+        prefix[name] = float((full_logits[:, : n_epochs // 2] - half_logits).abs().max())
+        scale = float(full_logits.abs().max())
+        del m
+    log(f'families (b) causality, one {HOURS:g} h night, f32: first half vs the whole night\'s first half, max |d| '
+        f'{prefix["layer"]:.3e} with layer-norm encoders (bound {FAMILY_F32_TOL:g}); {prefix["instance"]:.3e} with '
+        f'the config\'s instance-norm encoders, whose statistics span the night')
+    if not prefix['layer'] <= FAMILY_F32_TOL * (1 + scale):
+        raise AssertionError(f'families (b): the causal flagship is not causal on the card: {prefix}')
+    out['causal'] = dict(batch=BATCH, nights=NIGHTS, hours=HOURS, wall_s=walls[0], recordings_per_hour=rate,
+                         launches=causal_launches, prefix_max_abs_diff=prefix)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) Chunk-causal encoders, batch-norm sequence mixer (the config's
+    # default), post-norm epoch mixer, from a checkpoint folder in bf16.
+    cfg = family_config(wav2sleep, causal=True, chunk_causal=True, seq_norm=None, norm_first=False)
+    target = instantiate.target_config(**cfg)
+    del target['sequence_mixer']['norm']  # left out: the JAX package's default
+    folder = os.path.join(work, 'chunk_causal')
+    checkpoint.save_checkpoint_folder(folder, target, wav2sleep.build_wav2sleep(
+        **cfg, generator=torch.Generator().manual_seed(0)).state_dict())
+    loaded = api.load_model(folder, precision='bfloat16')
+    pipe = pipeline.StreamingPipeline(loaded, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS,
+                                      precision='bfloat16', normalize='zscore', device='cuda')
+    zero_counts(k1, k3)
+    walls_c, served_c = timed_passes(torch, pipe, fps[:BATCH], 1)
+    chunk_launches = counts(k1, k3)
+    check_hypnograms(served_c, fps[:BATCH], n_epochs, 'families (c)')
+    log(f'families (c) chunk-causal flagship, batch-norm sequence mixer, post-norm mixer, bf16 from a checkpoint '
+        f'folder: {BATCH} nights in {walls_c[0]:.3f} s (one batch, host decode in the loop); launches {chunk_launches}')
+    if chunk_launches['K1'] != 0 or chunk_launches['K2'] != 0:
+        raise AssertionError(f'families (c): launches {chunk_launches}')
+    out['chunk_causal'] = dict(batch=BATCH, wall_s=walls_c[0], launches=chunk_launches)
+    del pipe, loaded
+    torch.cuda.empty_cache()
+    out['wall_s'] = time.time() - t_phase
+    log(f'families: phase 12 took {out["wall_s"]:.1f} s')
+    return out, causal_launches['K3']
+
+
 def main() -> int:
     import torch
 
@@ -1260,9 +1495,11 @@ def main() -> int:
             f'with write_edf in {time.time() - t0:.1f} s (set-up)')
         main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
         phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
-    with torch.inference_mode():
-        variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
-    train_line, k1_train, k2_train = phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults)
+        with torch.inference_mode():
+            variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
+        train_line, k1_train, k2_train = phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults)
+        families_line, k3_causal = phase_families(torch, k1, k3, wav2sleep, pipeline, train_bench, card, fps, work,
+                                                   tf32_defaults)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -1278,10 +1515,11 @@ def main() -> int:
         dict(name='conv_k3_stats', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=stats_counts['K2'],
              train_launches=k2_train, max_abs_err=k2_err, **k2_line),
-        # K3 line: the first 65,536 samples of one serving batch's 32 rows.
+        # K3 line: the first 65,536 samples of one serving batch's 32 rows;
+        # causal_flagship_launches: phase 12 (b)'s pass.
         dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',
              replaces='wav2sleep_tpu/ops/pallas_ema.py:27', launches=main_counts['K3'],
-             max_abs_err=k3_err, **k3_line),
+             causal_flagship_launches=k3_causal, max_abs_err=k3_err, **k3_line),
         # The five profiling variants: phase 10, x [8, 153,600, 128] bf16,
         # tb 2048; launches: the profile_variants run; each also carries its
         # SASS counts (V0 LDG.E.128, STG.E.128; V2-V7 HGMMA, UTMALDG,
@@ -1290,6 +1528,7 @@ def main() -> int:
     ]
     log(f'nvidia-smi: {card}')
     print(json.dumps({'train': train_line}))
+    print(json.dumps({'families': families_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

@@ -683,3 +683,98 @@ def test_train_bench_runs_on_the_card_by_default(card, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line['device'] == torch.cuda.get_device_name(0) and line['card']
     assert line['k1_launches_per_step'] == 160 and line['peak_gib'] > 0 and np.isfinite(line['loss'])
+
+
+# ---------------------------------------------------------------- model families
+
+
+def _family_model(kind):
+    """A narrow wav2sleep of the families slice (ECG + THX, feature_dim 16,
+    channels 8-16) with seeded weights and seeded running statistics:
+    batch norm in the encoders and the sequence mixer, or causal encoders
+    and mixer."""
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep
+
+    causal = kind == 'causal'
+    norm = 'batch' if kind == 'batch_norm' else 'instance'
+    model = build_wav2sleep(
+        4, {'ECG': 'ECG', 'THX': 'THX'},
+        encoders=dict(feature_dim=16, activation='gelu', norm=norm, causal=causal, chunk_causal=False,
+                      initial_channels=8, max_channels=16),
+        epoch_mixer=dict(feature_dim=16, layers=1, dim_ff=32, nhead=4, dropout=0.0),
+        sequence_mixer=dict(feature_dim=16, num_layers=1, kernel_size=3, num_dilations=2, dropout=0.0,
+                            norm='batch' if kind == 'batch_norm' else 'layer', causal=causal),
+        generator=torch.Generator().manual_seed(0),
+    )
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+            elif name.endswith('running_var'):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    return model.eval()
+
+
+@pytest.mark.parametrize('kind', ['batch_norm', 'causal'])
+def test_family_forwards_match_the_cpu(card, kind):
+    """A batch-norm and a causal narrow wav2sleep, f32 on the card (TF32
+    off) against the CPU within 5e-4 (atol and rtol); neither launches K1,
+    as the JAX package keeps its Pallas conv off both."""
+    rng = np.random.default_rng(7)
+    x = {c: rng.normal(size=(2, n * 8)).astype(np.float32) for c, n in (('ECG', 1024), ('THX', 256))}
+    x['THX'][1] = -np.inf
+    model = _family_model(kind)
+    with torch.no_grad():
+        want = model({k: torch.from_numpy(v) for k, v in x.items()})
+        model.to(card)
+        k1.LAUNCHES = k1.STATS_LAUNCHES = 0
+        got = model({k: torch.from_numpy(v).to(card) for k, v in x.items()}).cpu()
+    print(f'{kind} f32 forward, card vs CPU: max|d| {float((got - want).abs().max()):.3e} on '
+          f'{torch.cuda.get_device_name(0)}')
+    assert (k1.LAUNCHES, k1.STATS_LAUNCHES) == (0, 0)
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+
+
+def test_f32_ppgnet_step_matches_the_cpu_under_torchs_default_flags(card_default_flags):
+    """One f32 SleepPPG-Net step (feature_dim 32, B=1, a ten-hour night,
+    dropout 0, flip off) on the card under torch's default flags against
+    the CPU, with the gates of the CPU's SleepPPG-Net step test
+    (tests/test_torch_train_families.py): loss within 5e-4 (1 + |loss|),
+    gradient norm within 1e-3 relative, running statistics within 1e-4 of
+    their value or of their buffer's largest |value|, parameters within
+    5e-4 outside the elements whose Adam moments the devices put over 10%
+    apart, those (at most 20%) within Adam's reach 2 lr."""
+    from wav2sleep_tpu_torch.models.ppgnet import SleepPPGNet, build_ppgnet
+    from wav2sleep_tpu_torch.train import step as tstep
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(1, SleepPPGNet.INPUT_LENGTH)).astype(np.float32)
+    y = rng.integers(-1, 4, size=(1, 1200)).astype(np.float32)
+    out = {}
+    for name, device in (('cpu', torch.device('cpu')), ('card', card_default_flags)):
+        model = build_ppgnet(torch.Generator().manual_seed(0), feature_dim=32, dropout=0.0).to(device)
+        opt = tstep.make_optimizer(TRAIN_LR)
+        state = tstep.init_train_state(model, opt)
+        step = tstep.make_train_step(model, opt, 4, flip_polarity=False, family='ppgnet')
+        _, metrics = step(state, ({'PPG': torch.from_numpy(x).to(device)}, torch.from_numpy(y).to(device)), 0)
+        out[name] = (float(metrics['loss']), float(metrics['grad_norm']),
+                     {k: p.detach().cpu() for k, p in state.params.items()},
+                     {k: m.cpu() for k, m in zip(state.params, state.opt_state.mu)},
+                     {k: v.cpu() for k, v in state.batch_stats.items()})
+    assert torch.backends.cudnn.allow_tf32  # the step restored torch's default
+    (l0, g0, p0, m0, s0), (l1, g1, p1, m1, s1) = out.values()
+    noisy = {k: (m1[k] - m0[k]).abs() > NOISY_MOMENT * m0[k].abs() for k in m0}
+    n, total = sum(int(v.sum()) for v in noisy.values()), sum(v.numel() for v in noisy.values())
+    d_params = max(float(torch.where(noisy[k], 0.0, p1[k] - p0[k]).abs().max()) for k in p0)
+    d_noisy = max(float(torch.where(noisy[k], p1[k] - p0[k], 0.0).abs().max()) for k in p0)
+    print(f'f32 SleepPPG-Net step, card vs CPU under torch\'s default flags: loss {abs(l1 - l0):.3e}, grad norm '
+          f'{abs(g1 - g0) / g0:.3e} relative, params {d_params:.3e} outside the {n} of {total} noisy elements, '
+          f'{d_noisy:.3e} inside, on {torch.cuda.get_device_name(0)}')
+    assert abs(l1 - l0) <= 5e-4 * (1 + abs(l0)) and abs(g1 - g0) <= 1e-3 * abs(g0)
+    for k, v in s0.items():
+        if k.endswith('num_batches_tracked'):
+            assert int(s1[k]) == int(v) == 1
+        else:
+            torch.testing.assert_close(s1[k], v, rtol=1e-4, atol=1e-4 * float(v.abs().max()))
+    assert d_params <= 5e-4 and d_noisy <= 2.01 * TRAIN_LR and n <= 0.2 * total

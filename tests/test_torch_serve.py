@@ -22,6 +22,7 @@ from wav2sleep_tpu import pipeline as jpipe
 from wav2sleep_tpu.checkpoint import save_checkpoint_folder as jax_save_folder
 from wav2sleep_tpu_torch import api, checkpoint, instantiate, serve
 from wav2sleep_tpu_torch import pipeline as tpipe
+from wav2sleep_tpu_torch.models import norms
 from wav2sleep_tpu_torch.models.wav2sleep import flagship_config
 
 from . import test_torch_transports as transports
@@ -107,11 +108,19 @@ def test_instantiate_reads_both_spellings_and_refuses_what_is_not_ported():
 
     no_norm = variant('sequence_mixer')
     del no_norm['sequence_mixer']['norm']  # the JAX package's default is batch norm
-    for cfg in (variant('signal_encoders', causal=True), variant('sequence_mixer', causal=True),
-                variant('signal_encoders', norm='batch'), variant('sequence_mixer', norm='rms'), no_norm,
-                variant('epoch_mixer', norm_first=False), {'_target_': 'wav2sleep.models.ppgnet.SleepPPGNet'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP §A.3'):
-            instantiate.build_model(cfg)
+    # The kinds ported in the families slice build: causal encoders and
+    # mixers, batch and RMS norms, the default (batch) sequence norm, the
+    # post-norm mixer and SleepPPG-Net.
+    built = [instantiate.build_model(cfg) for cfg in (
+        variant('signal_encoders', causal=True), variant('sequence_mixer', causal=True),
+        variant('signal_encoders', norm='batch'), variant('sequence_mixer', norm='rms'), no_norm,
+        variant('epoch_mixer', norm_first=False), {'_target_': 'wav2sleep.models.ppgnet.SleepPPGNet'})]
+    assert [m.causal for m in built] == [True] + [False] * 6
+    assert isinstance(built[2].signal_encoders.encoders['ECG'].cnn[0].conv1.norm, norms.BatchNorm)
+    assert isinstance(built[3].sequence_mixer.dilated_convs[0].conv_layers[0].norm, norms.ConvRMSNorm)
+    assert isinstance(built[4].sequence_mixer.dilated_convs[0].conv_layers[0].norm, norms.BatchNorm)
+    assert not built[5].epoch_mixer.transformer_encoder.layers[0].norm_first
+    assert built[6].valid_signals == ['PPG'] and built[6].num_classes == 4
     for cfg in ({**CONFIGS['small'], '_target_': 'x.Model'}, variant('epoch_mixer', _target_='x.Mixer'),
                 variant('signal_encoders', feature_dim='${feature_dim}')):
         with pytest.raises(ValueError):

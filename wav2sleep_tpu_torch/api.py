@@ -1,19 +1,21 @@
 """Public API of the port: load a trained model from a checkpoint folder.
 
-The port's counterpart of ``wav2sleep_tpu/api.py``'s ``load_model`` for the
-wav2sleep family. A folder holds ``config.yaml`` and ``state_dict.pth`` (the
+The port's counterpart of ``wav2sleep_tpu/api.py``'s ``load_model``, for
+both families. A folder holds ``config.yaml`` and ``state_dict.pth`` (the
 reference's deployable format) or ``params.npz`` (the JAX package's); see
-``checkpoint``. ``predict_on_folder`` and the parquet path are not ported
-yet (ROADMAP §A.4).
+``checkpoint``. The loaded module answers what the JAX package's
+``W2SModel`` answers for its family: ``valid_signals`` (``['PPG']`` for
+SleepPPG-Net), ``num_classes`` and ``causal``. ``predict_on_folder`` and
+the parquet path are not ported yet (ROADMAP §A.4).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from .checkpoint import load_state_dict, read_config
-from .instantiate import build_model
-from .models.wav2sleep import Wav2Sleep
+from .instantiate import build_model, model_family
 from .utils import resolve_device
 
 PRECISIONS = ('float32', 'bfloat16')
@@ -28,15 +30,16 @@ def check_local(folder: str) -> None:
         )
 
 
-def load_model(folder: str, precision: str = 'float32', device: torch.device | str | None = None) -> Wav2Sleep:
-    """The wav2sleep model of a checkpoint folder, in eval mode, on
-    ``device`` (the card when None; raises without one).
+def load_model(folder: str, precision: str = 'float32', device: torch.device | str | None = None) -> nn.Module:
+    """The model of a checkpoint folder (a ``Wav2Sleep`` or a
+    ``SleepPPGNet``), in eval mode, on ``device`` (the card when None;
+    raises without one).
 
     ``state_dict.pth`` is preferred over ``params.npz``; ``load_state_dict``
     with ``strict=True`` checks that the weights fit the config's model.
-    With ``precision='bfloat16'`` the parameters are cast to bf16, as the JAX
-    package casts its variables: the serving pipelines keep the parameters'
-    dtype.
+    With ``precision='bfloat16'`` the parameters and batch norm's running
+    statistics are cast to bf16, as the JAX package casts all its
+    variables: the serving pipelines keep the parameters' dtype.
 
     Full f32 holds in the serving pipelines' forwards only: they switch
     cuDNN's and the matmuls' TF32 off for each call (``utils.full_f32``).
@@ -50,7 +53,8 @@ def load_model(folder: str, precision: str = 'float32', device: torch.device | s
         raise ValueError(f'precision must be one of {PRECISIONS}, got {precision!r}')
     check_local(folder)
     dev = resolve_device(device)
-    model = build_model(read_config(folder))
-    model.load_state_dict(load_state_dict(folder), strict=True)
+    cfg = read_config(folder)
+    model = build_model(cfg)
+    model.load_state_dict(load_state_dict(folder, model_family(cfg)), strict=True)
     dtype = torch.bfloat16 if precision == 'bfloat16' else torch.float32
     return model.to(device=dev, dtype=dtype).eval()

@@ -58,22 +58,24 @@ def read_config(folder: str) -> dict:
         return yaml_load(f.read())
 
 
-def load_state_dict(folder: str) -> dict[str, torch.Tensor]:
-    """The folder's weights as a ``state_dict`` of the port's models:
-    ``state_dict.pth``, else ``params.npz``."""
+def load_state_dict(folder: str, family: str = 'wav2sleep') -> dict[str, torch.Tensor]:
+    """The folder's weights as a ``state_dict`` of the port's ``family``
+    model: ``state_dict.pth``, else ``params.npz``."""
     pth = os.path.join(folder, 'state_dict.pth')
     npz = os.path.join(folder, 'params.npz')
     if os.path.exists(pth):
         return torch.load(pth, map_location='cpu', weights_only=True)
     if os.path.exists(npz):
-        return from_jax_variables(load_params_npz(npz))
+        return from_jax_variables(load_params_npz(npz), family)
     raise FileNotFoundError(f'No state dict found at {pth}. Has the model been downloaded?')
 
 
 def save_checkpoint_folder(folder: str, config: dict, state_dict: dict[str, torch.Tensor]) -> None:
     """Write a deployable folder: ``config.yaml`` and ``state_dict.pth``
-    (floating tensors as f32 on the CPU), which both packages' loaders and
-    the reference's read."""
+    (floating tensors, batch norm's running statistics among them, as f32
+    on the CPU), which both packages' loaders and the reference's read;
+    the JAX package's reader refuses weight norm's ``weight_v`` /
+    ``weight_g``, which cross to it only through its own ``params.npz``."""
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, 'config.yaml'), 'w', encoding='utf-8') as f:
         f.write(yaml_dump(config))

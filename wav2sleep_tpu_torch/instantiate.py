@@ -1,31 +1,46 @@
 """A checkpoint's ``_target_`` model config -> the port's model.
 
-The port's counterpart of ``wav2sleep_tpu/instantiate.py`` for the wav2sleep
-family. Checkpoint folders carry the architecture as a Hydra-style config
-whose ``_target_`` strings name the reference's torch classes
-(``wav2sleep.models.*``) or the JAX package's (``wav2sleep_tpu.models.*``);
-both spellings are read. ``wav2sleep_arguments`` turns such a config into
-the keyword arguments of ``models.wav2sleep.build_wav2sleep``, with the
-JAX package's defaults for what the config leaves out. Model kinds the port
-does not have yet (SleepPPG-Net, causal encoders, batch / rms / group /
-weight norms) raise ``NotImplementedError``.
+The port's counterpart of ``wav2sleep_tpu/instantiate.py``. Checkpoint
+folders carry the architecture as a Hydra-style config whose ``_target_``
+strings name the reference's torch classes (``wav2sleep.models.*``) or the
+JAX package's (``wav2sleep_tpu.models.*``); both spellings are read, for
+both families: the multi-modal wav2sleep (``wav2sleep_arguments`` turns its
+config into the keyword arguments of ``models.wav2sleep.build_wav2sleep``,
+with the JAX package's defaults for what the config leaves out) and
+SleepPPG-Net (``models.ppgnet``). Unknown ``_target_``s and unresolved
+``${...}`` interpolations raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from .models.wav2sleep import Wav2Sleep, build_wav2sleep
+from torch import nn
+
+from .models.ppgnet import build_ppgnet
+from .models.wav2sleep import build_wav2sleep
 
 _MODULE = 'models.wav2sleep.'
+_PPGNET = 'models.ppgnet.SleepPPGNet'
 _PREFIXES = ('wav2sleep.', 'wav2sleep_tpu.')
-_NOT_PORTED = 'is not ported to the torch package yet (ROADMAP §A.3)'
-_NORMS = ('instance', 'layer')
 
 
 def model_family(cfg: dict) -> str:
     """'wav2sleep' or 'ppgnet' from a model config."""
     return 'ppgnet' if 'ppgnet' in str(cfg.get('_target_', '')).lower() else 'wav2sleep'
+
+
+def _arguments(node: dict) -> dict:
+    """A config node's keyword arguments, without its ``_target_``."""
+    out = {}
+    for k, v in node.items():
+        if k in ('_target_', '_partial_'):
+            continue
+        if isinstance(v, str) and '${' in v:
+            raise ValueError(f'Unresolved interpolation {v!r} for key {k!r}; '
+                             'checkpoint configs must be fully resolved.')
+        out[k] = v
+    return out
 
 
 def _section(cfg: dict, key: str, cls: str) -> dict:
@@ -37,14 +52,7 @@ def _section(cfg: dict, key: str, cls: str) -> dict:
     target = node.get('_target_')
     if target is not None and target not in (p + _MODULE + cls for p in _PREFIXES):
         raise ValueError(f'{key}: unknown _target_ {target!r}')
-    out = {}
-    for k, v in node.items():
-        if k in ('_target_', '_partial_'):
-            continue
-        if isinstance(v, str) and '${' in v:
-            raise ValueError(f'Unresolved interpolation {v!r} for key {k!r}; checkpoint configs must be fully resolved.')
-        out[k] = v
-    return out
+    return _arguments(node)
 
 
 def _signal_map(mapping: Any) -> dict[str, str]:
@@ -53,9 +61,7 @@ def _signal_map(mapping: Any) -> dict[str, str]:
 
 
 def wav2sleep_arguments(cfg: dict) -> dict:
-    """``build_wav2sleep``'s keyword arguments from a ``_target_`` config."""
-    if model_family(cfg) == 'ppgnet':
-        raise NotImplementedError(f'SleepPPG-Net {_NOT_PORTED}')
+    """``build_wav2sleep``'s keyword arguments from a wav2sleep ``_target_`` config."""
     target = cfg.get('_target_')
     if target not in (p + _MODULE + 'Wav2Sleep' for p in _PREFIXES):
         raise ValueError(f'Unknown _target_: {target!r}')
@@ -66,33 +72,37 @@ def wav2sleep_arguments(cfg: dict) -> dict:
     enc.pop('input_dim', None)
     signal_map = _signal_map(enc.pop('signal_map'))
     seq.setdefault('norm', 'batch')  # the JAX package's default
-    if enc.get('causal') or seq.get('causal'):
-        raise NotImplementedError(f'causal encoders and sequence mixers {_NOT_PORTED}')
-    if enc.get('norm', 'instance') not in _NORMS:
-        raise NotImplementedError(f"norm {enc['norm']!r} {_NOT_PORTED}")
-    if seq['norm'] is not None and seq['norm'] not in _NORMS:
-        raise NotImplementedError(f"norm {seq['norm']!r} {_NOT_PORTED}")
-    if not mix.pop('norm_first', True):
-        raise NotImplementedError(f'a post-norm epoch mixer {_NOT_PORTED}')
     return dict(num_classes=cfg['num_classes'], signal_map=signal_map, encoders=enc, epoch_mixer=mix,
                 sequence_mixer=seq)
 
 
-def build_model(cfg: dict) -> Wav2Sleep:
-    """The port's model for a ``_target_`` config (seeded weights, to be
-    replaced by a checkpoint's)."""
+def ppgnet_arguments(cfg: dict) -> dict:
+    """``SleepPPGNet``'s keyword arguments from its ``_target_`` config."""
+    if cfg.get('_target_') not in (p + _PPGNET for p in _PREFIXES):
+        raise ValueError(f"Unknown _target_: {cfg.get('_target_')!r}")
+    return _arguments(cfg)
+
+
+def build_model(cfg: dict) -> nn.Module:
+    """The port's model for a ``_target_`` config of either family (seeded
+    weights, to be replaced by a checkpoint's)."""
+    if model_family(cfg) == 'ppgnet':
+        return build_ppgnet(**ppgnet_arguments(cfg))
     return build_wav2sleep(**wav2sleep_arguments(cfg))
 
 
-def target_config(num_classes: int, signal_map: dict, encoders: dict, epoch_mixer: dict,
-                  sequence_mixer: dict) -> dict:
+def target_config(**arguments) -> dict:
     """The ``_target_`` config, with the reference's class names, of the
-    model that ``build_wav2sleep`` builds from the same arguments."""
+    model that ``build_wav2sleep(**arguments)`` builds or, for arguments
+    without a ``signal_map``, ``SleepPPGNet(**arguments)``."""
+    if 'signal_map' not in arguments:
+        return {'_target_': 'wav2sleep.' + _PPGNET, **arguments}
     ref = 'wav2sleep.' + _MODULE
+    a = arguments
     return {
         '_target_': ref + 'Wav2Sleep',
-        'num_classes': num_classes,
-        'signal_encoders': {'_target_': ref + 'SignalEncoders', 'signal_map': dict(signal_map), **encoders},
-        'epoch_mixer': {'_target_': ref + 'MultiModalAttentionEmbedder', **epoch_mixer},
-        'sequence_mixer': {'_target_': ref + 'SequenceCNN', **sequence_mixer},
+        'num_classes': a['num_classes'],
+        'signal_encoders': {'_target_': ref + 'SignalEncoders', 'signal_map': dict(a['signal_map']), **a['encoders']},
+        'epoch_mixer': {'_target_': ref + 'MultiModalAttentionEmbedder', **a['epoch_mixer']},
+        'sequence_mixer': {'_target_': ref + 'SequenceCNN', **a['sequence_mixer']},
     }

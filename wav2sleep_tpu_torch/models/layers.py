@@ -1,8 +1,14 @@
 """1-D convolutional building blocks on channels-last ``[N, T, C]`` tensors.
 
-Ports of ``wav2sleep_tpu/models/layers.py`` (non-causal). Parameters carry
-the reference torch names and shapes (``conv.weight`` ``[C_out, C_in, k]``,
-``downsample.weight``), so reference ``state_dict``s load unchanged.
+Ports of ``wav2sleep_tpu/models/layers.py``. Parameters carry the reference
+torch names and shapes (``conv.weight`` ``[C_out, C_in, k]``,
+``downsample.weight``; ``conv.weight_v`` and ``conv.weight_g`` under weight
+norm), so reference ``state_dict``s load unchanged.
+
+Causality (the reference's contract, JAX ``layers.py:9-12``): a causal conv
+pads ``(k - 1) * dilation`` on both sides and trims ``max(pad - (stride -
+1), 0)`` samples from the right after the conv, which keeps the norm
+statistics unskewed and aligns the stride-2 residual.
 
 Kernel dispatch: in a non-causal instance-norm encoder (``use_kernel``),
 every k=3, pad-(1,1), dilation-1 conv with 8 <= C_in <= 128 and
@@ -19,16 +25,32 @@ stay plain torch, as they are XLA (not Pallas) in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.block_domain import apply_norm_act, block_stats, kernel_stats_enabled
 from ..ops.conv_k3 import C_IN_RANGE, SUPPORTED_C_OUT, conv_k3, conv_k3_stats
 from .activations import get_activation
-from .norms import get_norm
+from .norms import frozen_running_stats, get_norm
+
+
+def rematerialised(block: nn.Module, x_NTC: torch.Tensor) -> torch.Tensor:
+    """``block(x_NTC)`` keeping only its input for the backward, which runs
+    the block again (``torch.utils.checkpoint``). The recompute draws no
+    random numbers (the blocks that run this way have no dropout) and
+    leaves batch norm's running statistics as the forward left them. It
+    reads the module's own parameters: under a bf16 ``functional_call``
+    those are the f32 masters, and every conv and norm casts its parameters
+    to its input's dtype, so the recomputed values are the forward's."""
+    return checkpoint(
+        block, x_NTC, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(block)),
+    )
 
 
 class Conv1D(nn.Module):
@@ -38,6 +60,11 @@ class Conv1D(nn.Module):
     conv kernels: f32 parameters run a bf16 conv on bf16 activations.
     ``fused_in=(mu, inv, act)`` makes the conv read ``act((x - mu) * inv)``
     (per-(batch, channel) f32 statistics) instead of ``x``.
+
+    ``weight_norm=True`` holds a direction ``weight_v`` [C_out, C_in, k]
+    and a magnitude ``weight_g`` [C_out, 1, 1] (torch ``weight_norm``'s
+    names at dim 0); the conv's weight is ``v / sqrt(sum(v^2) + 1e-12) *
+    g`` per output channel, the JAX package's formula.
     """
 
     def __init__(
@@ -50,17 +77,21 @@ class Conv1D(nn.Module):
         dilation: int = 1,
         use_bias: bool = True,
         use_kernel: bool = False,
+        weight_norm: bool = False,
     ):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, tuple(padding), dilation
-        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size))
-        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
-        bound = 1.0 / math.sqrt(self.weight[0].numel())
-        nn.init.uniform_(self.weight, -bound, bound)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
+        shape = (features, in_features, kernel_size)
+        bound = 1.0 / math.sqrt(in_features * kernel_size)
+        if weight_norm:
+            self.weight_v = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+            self.weight_g = nn.Parameter(torch.ones(features, 1, 1))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.kernel_eligible = (
             use_kernel
+            and not weight_norm
             and kernel_size == 3
             and self.padding == (1, 1)
             and dilation == 1
@@ -69,15 +100,22 @@ class Conv1D(nn.Module):
             and features in SUPPORTED_C_OUT
         )
 
+    def kernel(self) -> torch.Tensor:
+        """The conv's weight [C_out, C_in, k]."""
+        if not hasattr(self, 'weight_v'):
+            return self.weight
+        v = self.weight_v
+        return v / torch.sqrt(v.square().sum(dim=(1, 2), keepdim=True) + 1e-12) * self.weight_g
+
     def forward(self, x_NTC: torch.Tensor, fused_in=None) -> torch.Tensor:
-        w = self.weight.to(x_NTC.dtype)
+        w = self.kernel().to(x_NTC.dtype)
         b = None if self.bias is None else self.bias.to(x_NTC.dtype)
         mu, inv, act = fused_in if fused_in is not None else (None, None, None)
         if self.kernel_eligible:
             return conv_k3(x_NTC.contiguous(), w.permute(2, 1, 0).contiguous(), b, mu, inv, self.stride, act)
         if fused_in is not None:
             x_NTC = apply_norm_act(x_NTC, mu, inv, get_activation(act))
-        if self.weight.shape[2] == 1 and self.padding == (0, 0):
+        if w.shape[2] == 1 and self.padding == (0, 0):
             # A 1x1 conv (the blocks' stride-2 residual) is a product over
             # channels of every stride-th step, as the JAX package's TPU
             # path computes it. On the card it runs faster than F.conv1d of
@@ -103,7 +141,11 @@ class Conv1D(nn.Module):
 
 
 class ConvLayer1D(nn.Module):
-    """Conv + norm + activation (non-causal)."""
+    """Conv + norm + activation. A causal layer pads ``(k - 1) * dilation``
+    on both sides and trims the right after the conv; ``norm='weight'``
+    reparameterises the conv and adds no module; the conv has a bias where
+    there is no norm. (The JAX layer's dropout is left out: no model of
+    either package sets it.)"""
 
     def __init__(
         self,
@@ -121,17 +163,20 @@ class ConvLayer1D(nn.Module):
         use_kernel: bool = False,
     ):
         super().__init__()
-        if causal:
-            raise NotImplementedError('causal convolutions are not ported to the torch package yet')
+        pad = (kernel_size - 1) * dilation if causal else padding
+        self.trim = max(pad - (stride - 1), 0) if causal else 0
         self.conv = Conv1D(
-            in_features, features, kernel_size, stride, (padding, padding), dilation,
-            use_bias=use_bias or norm is None, use_kernel=use_kernel,
+            in_features, features, kernel_size, stride, (pad, pad), dilation,
+            use_bias=use_bias or norm is None, use_kernel=use_kernel and not causal,
+            weight_norm=norm == 'weight',
         )
-        self.norm = get_norm(norm, features, norm_eps)
+        self.norm = None if norm == 'weight' else get_norm(norm, features, norm_eps)
         self.act = get_activation(activation)
 
     def forward(self, x_NTC: torch.Tensor) -> torch.Tensor:
         out = self.conv(x_NTC)
+        if self.trim:
+            out = out[:, : out.shape[1] - self.trim]
         if self.norm is not None:
             out = self.norm(out)
         return self.act(out)
@@ -139,23 +184,27 @@ class ConvLayer1D(nn.Module):
 
 class ConvBlock1D(nn.Module):
     """Three k=3 conv layers, the third at stride 2, plus a 1x1 stride-2
-    residual projection."""
+    residual projection. A non-causal instance-norm block runs the fused
+    chain (each conv reads the previous one's norm and activation); every
+    other block runs its three layers as they are, as the JAX package
+    does."""
 
     def __init__(
         self,
         in_features: int,
         features: int,
         activation: str = 'gelu',
-        norm: str = 'instance',
+        norm: str | None = 'instance',
         norm_eps: float | None = None,
         use_residual: bool = True,
         use_kernel: bool = False,
+        causal: bool = False,
     ):
         super().__init__()
 
         def make(cin: int, stride: int) -> ConvLayer1D:
             return ConvLayer1D(
-                cin, features, 3, stride, 1, activation=activation, norm=norm, norm_eps=norm_eps,
+                cin, features, 3, stride, 1, causal=causal, activation=activation, norm=norm, norm_eps=norm_eps,
                 use_kernel=use_kernel,
             )
 
@@ -165,7 +214,7 @@ class ConvBlock1D(nn.Module):
         )
         self.activation = activation
         self.act = get_activation(activation)
-        self.fused = norm == 'instance'
+        self.fused = norm == 'instance' and not causal
         self.eps = norm_eps if norm_eps is not None else 1e-5
 
     def forward(self, x_NTC: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Pre-norm transformer encoder with ``nn.TransformerEncoder`` parameter names.
+"""Transformer encoder with ``nn.TransformerEncoder`` parameter names.
 
 Port of ``wav2sleep_tpu/models/transformer.py``: packed QKV projection
 (``in_proj_weight`` [3F, F], ``in_proj_bias``), key-padding masking that
-removes masked keys from every query's softmax, LayerNorm eps 1e-5 and an
-exact-GELU feed-forward. Attention runs over at most a handful of tokens
+removes masked keys from every query's softmax, LayerNorm eps 1e-5, an
+exact-GELU feed-forward, and the pre-norm (``norm_first``, the default) or
+post-norm layer. Attention runs over at most a handful of tokens
 (modalities + CLS + registers), so it is written as explicit einsums.
 """
 
@@ -53,12 +54,16 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm transformer encoder layer: ``x += attn(norm1(x)); x += ff(norm2(x))``."""
+    """Pre-norm (``x += attn(norm1(x)); x += ff(norm2(x))``) or, with
+    ``norm_first=False``, post-norm (``x = norm1(x + attn(x)); x = norm2(x +
+    ff(x))``) transformer encoder layer."""
 
     def __init__(
-        self, d_model: int, nhead: int, dim_ff: int = 512, dropout: float = 0.0, activation: str = 'gelu'
+        self, d_model: int, nhead: int, dim_ff: int = 512, dropout: float = 0.0, activation: str = 'gelu',
+        norm_first: bool = True,
     ):
         super().__init__()
+        self.norm_first = norm_first
         self.self_attn = MultiHeadSelfAttention(d_model, nhead, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
@@ -69,10 +74,18 @@ class TransformerEncoderLayer(nn.Module):
         self.drop2 = nn.Dropout(dropout)
         self.drop_ff = nn.Dropout(dropout)
 
+    def _sa(self, x_NDF: torch.Tensor, key_padding_mask: torch.Tensor | None) -> torch.Tensor:
+        return self.drop1(self.self_attn(x_NDF, key_padding_mask))
+
+    def _ff(self, x_NDF: torch.Tensor) -> torch.Tensor:
+        return self.drop2(self.linear2(self.drop_ff(self.act(self.linear1(x_NDF)))))
+
     def forward(self, x_NDF: torch.Tensor, key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
-        x_NDF = x_NDF + self.drop1(self.self_attn(self.norm1(x_NDF), key_padding_mask))
-        ff = self.linear2(self.drop_ff(self.act(self.linear1(self.norm2(x_NDF)))))
-        return x_NDF + self.drop2(ff)
+        if self.norm_first:
+            x_NDF = x_NDF + self._sa(self.norm1(x_NDF), key_padding_mask)
+            return x_NDF + self._ff(self.norm2(x_NDF))
+        x_NDF = self.norm1(x_NDF + self._sa(x_NDF, key_padding_mask))
+        return self.norm2(x_NDF + self._ff(x_NDF))
 
 
 class TransformerEncoder(nn.Module):
@@ -80,11 +93,11 @@ class TransformerEncoder(nn.Module):
 
     def __init__(
         self, d_model: int, nhead: int, num_layers: int, dim_ff: int = 512, dropout: float = 0.0,
-        activation: str = 'gelu',
+        activation: str = 'gelu', norm_first: bool = True,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, nhead, dim_ff, dropout, activation)
+            TransformerEncoderLayer(d_model, nhead, dim_ff, dropout, activation, norm_first)
             for _ in range(num_layers)
         )
 

@@ -24,12 +24,11 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..settings import COLS_TO_SAMPLES_PER_EPOCH
 from ..utils import resolve_device
 from .activations import get_activation
-from .layers import Conv1D, ConvBlock1D, DilatedConvBlock
+from .layers import Conv1D, ConvBlock1D, DilatedConvBlock, rematerialised
 from .norms import ConvLayerNorm
 from .transformer import MultiHeadSelfAttention, TransformerEncoder
 
@@ -39,6 +38,12 @@ class SignalEncoder(nn.Module):
 
     ``log2(samples_per_epoch) - 2`` stride-2 blocks reduce each epoch to 4
     positions; channels double every other block up to ``max_channels``.
+
+    ``causal`` with ``chunk_causal`` runs each 30 s epoch alone (the blocks
+    see [B * S, samples_per_epoch, 1]); ``causal`` alone makes every conv
+    causal. ``norm='auto'`` is instance norm for blocks 0-1, then layer
+    norm. Instance norm uses eps 1e-2. K1 serves only a non-causal
+    instance-norm encoder, as the JAX package's Pallas path does.
 
     ``remat`` recomputes each block's activations in the backward pass
     instead of keeping them (``torch.utils.checkpoint``), when the module is
@@ -62,24 +67,25 @@ class SignalEncoder(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if causal:
-            raise NotImplementedError('causal encoders are not ported to the torch package yet')
         if samples_per_epoch & (samples_per_epoch - 1):
             raise ValueError(f'samples_per_epoch must be a power of 2, got {samples_per_epoch}')
         self.samples_per_epoch = samples_per_epoch
         self.remat = remat
+        self.chunked = causal and chunk_causal
         num_blocks = int(math.log2(samples_per_epoch)) - 2
         channels = [min(initial_channels * 2 ** (i // 2), max_channels) for i in range(num_blocks)]
         self.epoch_dim = channels[-1] * 4
         blocks, cin = [], 1
-        for ch in channels:
+        for i, ch in enumerate(channels):
+            norm_i = ('instance' if i < 2 else 'layer') if norm == 'auto' else norm
             blocks.append(
                 ConvBlock1D(
-                    cin, ch, activation=activation, norm=norm,
+                    cin, ch, activation=activation, norm=norm_i,
                     # Larger instance-norm eps prevents NaN on low-variance maps.
-                    norm_eps=1e-2 if norm == 'instance' else None,
+                    norm_eps=1e-2 if norm_i == 'instance' else None,
                     use_residual=use_residual,
-                    use_kernel=norm == 'instance',
+                    use_kernel=norm == 'instance' and not causal,
+                    causal=causal and not chunk_causal,
                 )
             )
             cin = ch
@@ -92,16 +98,13 @@ class SignalEncoder(nn.Module):
         B, T = x_BT.shape
         if T % self.samples_per_epoch:
             raise ValueError(f'Input length {T} must be divisible by samples_per_epoch={self.samples_per_epoch}.')
-        y = x_BT[:, :, None]
+        spe = self.samples_per_epoch
+        y = x_BT.reshape(B * (T // spe), spe, 1) if self.chunked else x_BT[:, :, None]
         remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.cnn:
-            # The blocks draw no random numbers, so the recompute needs no
-            # saved RNG state. It reads the module's own parameters: under a
-            # bf16 ``functional_call`` those are the f32 masters, and every
-            # conv casts its weights to its input's dtype, so the recomputed
-            # values are the forward's.
-            y = checkpoint(block, y, use_reentrant=False, preserve_rng_state=False) if remat else block(y)
-        # [B, 4S, C] -> [B, S, 4C]: the reference's transpose + reshape order.
+            y = rematerialised(block, y) if remat else block(y)
+        # [B, 4S, C] (or [B * S, 4, C]) -> [B, S, 4C]: the reference's
+        # transpose + reshape order.
         y = y.reshape(B, T // self.samples_per_epoch, self.epoch_dim)
         # Promote to the parameters' dtype, as the JAX package's Dense does:
         # with f32 parameters, bf16 serving runs everything after here in f32.
@@ -129,6 +132,7 @@ class SignalEncoders(nn.Module):
     ):
         super().__init__()
         self.signal_map = dict(signal_map)
+        self.causal = causal
         self.encoders = nn.ModuleDict()
         for signal_name, encoder_name in self.signal_map.items():
             if encoder_name in self.encoders:
@@ -172,12 +176,13 @@ class MultiModalAttentionEmbedder(nn.Module):
         activation: str = 'gelu',
         nhead: int = 4,
         register_tokens: int = 0,
+        norm_first: bool = True,
     ):
         super().__init__()
         self.feature_dim = feature_dim
         self.register_tokens = nn.Parameter(torch.randn(1, 1, feature_dim, register_tokens + 1))
         self.transformer_encoder = TransformerEncoder(
-            feature_dim, nhead, layers, dim_ff, dropout, activation
+            feature_dim, nhead, layers, dim_ff, dropout, activation, norm_first
         )
 
     def forward(self, z_dict: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -247,12 +252,18 @@ class Wav2Sleep(nn.Module):
         self.signal_encoders = signal_encoders
         self.epoch_mixer = epoch_mixer
         self.sequence_mixer = sequence_mixer
+        self.num_classes = num_classes
         self.classifier = nn.Linear(epoch_mixer.feature_dim, num_classes)
 
     @property
     def valid_signals(self) -> list[str]:
         """The signals the model takes, in its config's order."""
         return list(self.signal_encoders.signal_map)
+
+    @property
+    def causal(self) -> bool:
+        """Whether the encoders are causal (per epoch, or conv by conv)."""
+        return self.signal_encoders.causal
 
     def forward(
         self, x: dict[str, torch.Tensor], present: dict[str, torch.Tensor] | None = None
@@ -264,15 +275,22 @@ class Wav2Sleep(nn.Module):
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init of every parameter (the JAX package's scheme:
-    uniform +-1/sqrt(fan_in) conv and dense kernels, zero biases, unit norm
-    scales, N(0, 1) register tokens and signal embeddings)."""
+    uniform +-1/sqrt(fan_in) conv and dense kernels and weight-norm
+    directions, zero biases, unit norm scales and weight-norm magnitudes,
+    N(0, 1) register tokens and signal embeddings). The norms' own
+    constructors give the other kinds' unit scales and zero biases."""
 
     def uniform_fan_in(w):
         bound = 1.0 / math.sqrt(w[0].numel())
         w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound) - bound)
 
     for m in model.modules():
-        if isinstance(m, (Conv1D, nn.Linear)):
+        if isinstance(m, Conv1D) and hasattr(m, 'weight_v'):
+            uniform_fan_in(m.weight_v)
+            m.weight_g.fill_(1.0)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (Conv1D, nn.Linear)):
             uniform_fan_in(m.weight)
             if m.bias is not None:
                 m.bias.zero_()

@@ -14,6 +14,13 @@ updates; and accumulation applies the clip and AdamW to the mean of the
 micro-steps' gradients, on the k-th micro-step only. The EMA folds only on
 applied steps, and ``ema_start_step`` counts optimizer steps.
 
+Batch norm's running statistics are the model's buffers: each micro-step's
+forward in train mode updates them once (a rematerialised block's recompute
+leaves them alone), in f32 under a bf16 step too, as JAX's
+``mutable=['batch_stats']`` does. The eval step normalizes with them, for
+the model's parameters and for the EMA's alike. SleepPPG-Net
+(``family='ppgnet'``) takes its one signal as a tensor.
+
 Randomness: the flip, the masker and dropout draw from seeds derived from
 the run's seed and the step (``step_seeds``, the counterpart of JAX's
 ``fold_in``), so a step is reproducible and the global RNG streams are left
@@ -143,12 +150,15 @@ def make_optimizer(
 @dataclass
 class TrainState:
     """``params`` are the model's own (f32) parameters, by name, updated in
-    place by the step; ``ema_params`` are detached copies or None."""
+    place by the step; ``ema_params`` are detached copies or None;
+    ``batch_stats`` are the model's running statistics (its buffers), by
+    name, updated in place by the forward, or None for a model without."""
 
     step: int
     params: dict[str, nn.Parameter]
     opt_state: OptState
     ema_params: dict[str, torch.Tensor] | None = None
+    batch_stats: dict[str, torch.Tensor] | None = None
 
 
 def init_train_state(model: nn.Module, opt: AdamW, ema: bool = False) -> TrainState:
@@ -157,7 +167,16 @@ def init_train_state(model: nn.Module, opt: AdamW, ema: bool = False) -> TrainSt
     if low:
         raise TypeError(f'the training step keeps f32 master parameters; not f32: {low[:3]}')
     ema_params = {n: p.detach().clone() for n, p in params.items()} if ema else None
-    return TrainState(0, params, opt.init(list(params.values())), ema_params)
+    return TrainState(0, params, opt.init(list(params.values())), ema_params, dict(model.named_buffers()) or None)
+
+
+def _model_input(x: dict[str, torch.Tensor], family: str):
+    """The model's input: the dict, or SleepPPG-Net's one signal."""
+    if family == 'ppgnet':
+        if len(x) != 1:
+            raise ValueError(f'{list(x)=} but expected unimodal input!')
+        return next(iter(x.values()))
+    return x
 
 
 def step_seeds(seed: int, step: int) -> tuple[int, int, int]:
@@ -194,6 +213,7 @@ def make_train_step(
     ema_decay: float | None = None,
     ema_start_step: int = 0,
     compute_dtype: torch.dtype | None = None,
+    family: str = 'wav2sleep',
 ) -> Callable:
     """``train_step(state, (x, y), seed) -> (state, metrics)``.
 
@@ -210,9 +230,10 @@ def make_train_step(
         with record_function('train_step/forward'):
             if low:
                 cast = {n: p.to(compute_dtype) for n, p in state.params.items()}
-                logits = torch.func.functional_call(model, cast, ({k: v.to(compute_dtype) for k, v in x.items()},))
+                xin = _model_input({k: v.to(compute_dtype) for k, v in x.items()}, family)
+                logits = torch.func.functional_call(model, cast, (xin,))
             else:
-                logits = model(x)
+                logits = model(_model_input(x, family))
             loss = cross_entropy_ignore_index(logits.reshape(-1, num_classes), y.reshape(-1), label_smoothing)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return loss.detach(), logits.detach(), list(grads)
@@ -248,10 +269,11 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: nn.Module, num_classes: int) -> Callable:
+def make_eval_step(model: nn.Module, num_classes: int, family: str = 'wav2sleep') -> Callable:
     """``eval_step(params, (x, y), present=None) -> {'loss', 'cmat', 'preds'}``
-    with ``params`` the model's (``state.params``) or the EMA's; ``present``
-    masks modalities ({signal: bool [B]})."""
+    with ``params`` the model's (``state.params``) or the EMA's, and the
+    model's running statistics either way; ``present`` masks modalities
+    ({signal: bool [B]}, the wav2sleep family only)."""
 
     @torch.inference_mode()
     def eval_step(params: dict[str, torch.Tensor], batch, present: dict | None = None):
@@ -260,7 +282,10 @@ def make_eval_step(model: nn.Module, num_classes: int) -> Callable:
             x = dequant_batch(x)
         model.eval()
         with full_f32():
-            logits = torch.func.functional_call(model, params, (x,), {'present': present})
+            if family == 'ppgnet':
+                logits = torch.func.functional_call(model, params, (_model_input(x, family),))
+            else:
+                logits = torch.func.functional_call(model, params, (x,), {'present': present})
         loss = cross_entropy_ignore_index(logits.reshape(-1, num_classes), y.reshape(-1))
         return {'loss': loss, 'cmat': confusion_matrix(logits, y, num_classes), 'preds': logits.argmax(dim=-1)}
 
