@@ -121,11 +121,34 @@ Phases (any failure raises, so the script exits non-zero):
    the EDF nights: valid hypnograms, no K1. Prints a ``families`` JSON line
    and the phase's wall time.
 
+13. Trainer: ``python -m wav2sleep_tpu_torch.train``'s ``main(argv)`` on the
+   card. (a) A parquet corpus written with ``data.parquet.write_night`` as
+   ingest lays it out: mesa and shhs, each 8 train, 4 val and 2 test
+   ten-hour nights (ECG, PPG, ABD, THX with a stage-dependent amplitude,
+   and a Stage column), one night without THX and one ``.issues`` night;
+   bytes and seconds printed. (b) The flagship at full width
+   (``scripts/config/model/wav2sleep.yaml``: remat on, masker and flip on,
+   f32 under torch's default TF32 flags), 2 epochs at batch 8 with
+   accumulation 2 (target 16), EMA from step 0, the test set: every loss
+   finite, metrics.jsonl with the JAX trainer's keys, ``checkpoints/
+   {last,best}`` and their sidecars, ``final_metrics.json``, and K1
+   launched 160 times a training micro-step (forward and remat recompute,
+   counted around each training epoch). (c) ``epochs=3 ckpt_path=last``
+   into the same run directory: exactly one more epoch, appended to the
+   same metrics.jsonl, from a restored state whose parameters, Adam moments
+   and EMA equal the saved ones bit for bit. (d) ``<run>/model`` through
+   ``api.load_model(precision='bfloat16')`` on one batch of the val nights:
+   1,200-epoch hypnograms in 0..3. (e) ``tune_batch_size`` for the f32
+   flagship on ten-hour nights up to its ceiling of 512: the tuned batch,
+   the batch that ran out of memory and the seconds, with the card's
+   allocated memory back within 64 MiB. Prints a ``trainer`` JSON line.
+
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train`` and ``families`` lines come before the ``kernels`` line; the
-line before the last is a JSON object describing the kernels (K1's and K2's
-entries also carry ``train_launches``, per training step, and K3's
+before it runs. The ``train``, ``families`` and ``trainer`` lines come before the ``kernels``
+line; the line before the last is a JSON object describing the kernels (K1's
+and K2's entries also carry ``train_launches``, per training step, K1's
+``trainer_launches``, per training micro-step of phase 13, and K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1452,6 +1475,239 @@ def phase_families(torch, k1, k3, wav2sleep, pipeline, train_bench, card, fps, w
     return out, causal_launches['K3']
 
 
+# Phase 13: the trainer. A parquet corpus of ten-hour nights as ingest lays
+# it out (one table a night, shorter columns null-padded, a Stage column):
+# mesa and shhs, each with these nights a split.
+TRAINER_NIGHTS = {'train': 8, 'val': 4, 'test': 2}
+TRAINER_SEED = 17
+TRAINER_SPE = {'ECG': 1024, 'PPG': 1024, 'ABD': 256, 'THX': 256}
+TRAINER_BATCH = 8
+TRAINER_OVERRIDES = ['datasets.train=[mesa,shhs]', 'datasets.val=[mesa,shhs]', 'datasets.test=[mesa]',
+                     f'batch_size={TRAINER_BATCH}', 'target_batch_size=16', f'training.val_batch_size={TRAINER_BATCH}',
+                     f'training.test_batch_size={TRAINER_BATCH}', 'training.ema.enabled=true',
+                     'training.ema.start_step=0', 'test=true']
+# The keys of the JAX trainer's metrics.jsonl rows for this corpus, per
+# epoch: the train row, its confusion row, and the eval matrix's rows
+# (tests/test_torch_trainer.py holds the port's keys equal to JAX's).
+TRAIN_ROW = {'step', 'time', 'train_loss', 'train_steps_per_sec', 'lr_step', 'lr', 'host_loader_frac'}
+VAL_SUBSETS = {'mesa': ('ECG', 'ECG_THX', 'PPG', 'PPG_THX'), 'shhs': ('ECG', 'ECG_THX')}
+VAL_ROW = ({'step', 'time', 'val_loss', 'val_loss_mesa', 'val_loss_shhs'}
+           | {f'val_{s}_loss_{d}' for d, subs in VAL_SUBSETS.items() for s in subs}
+           | {f'val_eval_seconds_{d}' for d in ('all', 'mesa', 'shhs')})
+CONFUSION_PREFIXES = (['train_all', 'val_all', 'val_mesa'] + [f'val_{s}_mesa' for s in VAL_SUBSETS['mesa']]
+                      + ['val_shhs'] + [f'val_{s}_shhs' for s in VAL_SUBSETS['shhs']])
+TUNE_MEMORY_SLACK = 64 * 2**20  # bytes the card may hold after tuning beyond what it held before
+
+
+def write_trainer_corpus(root: str) -> tuple[int, float]:
+    """The phase's parquet corpus (written with ``data.parquet.write_night``):
+    seeded signals whose amplitude follows the stage (as
+    tests/train/test_trainer_smoke.py writes them), one mesa train night
+    without THX, and one ``.issues`` night the data module must skip.
+    Returns the bytes written and the seconds taken."""
+    from wav2sleep_tpu_torch.data.parquet import write_night
+
+    t0, n_bytes = time.time(), 0
+    S = int(round(TRAIN_HOURS * 120))
+    rng = np.random.default_rng(TRAINER_SEED)
+    for ds in ('mesa', 'shhs'):
+        for split, n_nights in TRAINER_NIGHTS.items():
+            folder = os.path.join(root, ds, split)
+            os.makedirs(folder)
+            for n in range(n_nights):
+                labels = rng.integers(0, 4, size=S).astype(np.float32)
+                cols = {}
+                for sig, spe in TRAINER_SPE.items():
+                    if (ds, split, n) == ('mesa', 'train', 0) and sig == 'THX':
+                        continue
+                    amp = np.repeat(labels + 1.0, spe).astype(np.float32)
+                    base = np.tile(np.sin(np.arange(spe, dtype=np.float32) / np.float32(3.0)), S) if spe == 1024 else 1.0
+                    cols[sig] = amp * base + np.float32(0.05) * rng.standard_normal(S * spe, dtype=np.float32)
+                cols['Stage'] = labels
+                fp = os.path.join(folder, f'{ds}-night{n}.parquet')
+                write_night(fp, cols, metadata={k: {'samples_per_epoch': v} for k, v in TRAINER_SPE.items()})
+                n_bytes += os.path.getsize(fp)
+    bad = os.path.join(root, 'mesa', 'train', 'bad.issues.parquet')
+    write_night(bad, {'ECG': np.zeros(S * 1024, np.float32), 'Stage': np.zeros(S, np.float32)})
+    return n_bytes + os.path.getsize(bad), time.time() - t0
+
+
+def _jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_trainer_log(rows: list[dict], epochs: list[int]) -> None:
+    """The JAX trainer's metrics.jsonl keys for ``epochs``, every loss finite."""
+    for epoch in epochs:
+        mine = [r for r in rows if r['step'] == epoch]
+        train = [r for r in mine if 'train_loss' in r]
+        val = [r for r in mine if 'val_loss' in r]
+        if len(train) != 1 or set(train[0]) != TRAIN_ROW or len(val) != 1 or set(val[0]) != VAL_ROW:
+            raise AssertionError(f'trainer: metrics.jsonl rows of epoch {epoch} do not have the JAX trainer\'s keys: '
+                                 f'{[sorted(r) for r in train + val]}')
+        prefixes = [next(k for k in r if k.endswith('_acc'))[: -len('_acc')] for r in mine if
+                    any(k.endswith('_acc') for k in r)]
+        prefixes = [p for p in prefixes if not p.startswith('test_')]
+        if prefixes != CONFUSION_PREFIXES:
+            raise AssertionError(f'trainer: confusion rows of epoch {epoch}: {prefixes}')
+        losses = {k: v for r in train + val for k, v in r.items() if 'loss' in k}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f'trainer: a loss of epoch {epoch} is not finite: {losses}')
+
+
+def phase_trainer(torch, k1, k3, card, work, tf32_defaults):
+    """Phase 13: ``python -m wav2sleep_tpu_torch.train``'s ``main`` on the
+    card: the flagship at full width on ten-hour parquet nights, 2 epochs,
+    then a resume from ``last`` for one more, the exported folder served in
+    bf16, and batch-size tuning past an out-of-memory. Returns the
+    ``trainer`` line and K1's launches per training micro-step."""
+    from wav2sleep_tpu_torch import api
+    from wav2sleep_tpu_torch.data.dataset import ParquetDataset, collate
+    from wav2sleep_tpu_torch.instantiate import build_model
+    from wav2sleep_tpu_torch.config import compose
+    from wav2sleep_tpu_torch.train import __main__ as train_cli
+    from wav2sleep_tpu_torch.train import checkpointing, loop
+    from wav2sleep_tpu_torch.train.tuning import tune_batch_size
+
+    t_phase = time.time()
+    corpus, run = os.path.join(work, 'corpus'), os.path.join(work, 'run')
+    n_bytes, write_s = write_trainer_corpus(corpus)
+    log(f'trainer: wrote {sum(TRAINER_NIGHTS.values()) * 2} parquet nights of {TRAIN_HOURS:g} h and one .issues night, '
+        f'{n_bytes / 2**20:.1f} MiB, in {write_s:.1f} s (set-up)')
+    # Count K1 over each training epoch and its micro-steps; keep the state
+    # saved at the last epoch's checkpoint, and compare what the resumed run
+    # restores with it.
+    epochs, saved, restored = [], {}, {}
+    orig_epoch, orig_save, orig_restore = loop.Trainer.train_epoch, checkpointing.CheckpointManager.save, \
+        checkpointing.CheckpointManager.restore
+
+    def counted_epoch(self, epoch):
+        self.ensure_state()
+        step0, before = self.state.step, k1.LAUNCHES
+        out = orig_epoch(self, epoch)
+        epochs.append(dict(epoch=epoch, micro_steps=self.state.step - step0, k1=k1.LAUNCHES - before))
+        return out
+
+    def kept_save(self, trainer, epoch, val_loss, is_best):
+        orig_save(self, trainer, epoch, val_loss, is_best)
+        saved['epoch'], saved['tree'] = epoch, checkpointing.state_tree(trainer.state)
+
+    def checked_restore(self, trainer, which='last'):
+        epoch = orig_restore(self, trainer, which)
+        if which == 'last':
+            restored['epoch'], restored['tree'] = epoch, checkpointing.state_tree(trainer.state)
+        return epoch
+
+    saved_flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    loop.Trainer.train_epoch, checkpointing.CheckpointManager.save = counted_epoch, kept_save
+    checkpointing.CheckpointManager.restore = checked_restore
+    try:
+        args = [*TRAINER_OVERRIDES, f'max_length_hours={TRAIN_HOURS:g}', f'data_location={corpus}', f'run_dir={run}']
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(k1, k3)
+        t0 = time.time()
+        final = train_cli.main([*args, 'epochs=2'])
+        torch.cuda.synchronize()
+        fit_s, fit_launches = time.time() - t0, counts(k1, k3)
+        fit_peak = torch.cuda.max_memory_allocated() / 2**30
+        first_saved = dict(saved)
+        rows = _jsonl(os.path.join(run, 'metrics.jsonl'))
+        check_trainer_log(rows, [0, 1])
+        for name in ('last', 'best'):
+            for path in (os.path.join(run, 'checkpoints', name, checkpointing.STATE_FILE),
+                         os.path.join(run, 'checkpoints', f'{name}.meta.json')):
+                if not os.path.exists(path):
+                    raise AssertionError(f'trainer: {path} is missing')
+        with open(os.path.join(run, 'final_metrics.json')) as f:
+            if json.load(f).keys() != final.keys() or not all(np.isfinite(v) for v in final.values()):
+                raise AssertionError(f'trainer: final_metrics.json disagrees with {final}')
+        micro = [e['micro_steps'] for e in epochs]
+        if micro != [2, 2] or any(e['k1'] != 160 * e['micro_steps'] for e in epochs):
+            raise AssertionError(f'trainer: K1 launches per training epoch {epochs}, expected 160 a micro-step over 2 '
+                                 f'micro-steps (16 train nights, batch {TRAINER_BATCH}; the .issues night skipped)')
+        k1_per_micro_step = epochs[0]['k1'] // epochs[0]['micro_steps']
+        log(f'trainer: 2 epochs through main() in {fit_s:.1f} s (test set included); K1 {k1_per_micro_step} launches '
+            f'a training micro-step (forward and remat recompute), {fit_launches["K1"] - sum(e["k1"] for e in epochs)} in '
+            f'the eval and test passes; peak device memory {fit_peak:.2f} GiB; final {final}')
+
+        # (c) Resume from last for exactly one more epoch.
+        epochs.clear()
+        t0 = time.time()
+        train_cli.main([*args, 'epochs=3', 'ckpt_path=last'])
+        resume_s = time.time() - t0
+        if [e['epoch'] for e in epochs] != [2] or restored.get('epoch') != 2:
+            raise AssertionError(f'trainer: the resumed run trained epochs {[e["epoch"] for e in epochs]}, expected [2]')
+        want, got = first_saved['tree'], restored['tree']
+        mismatched = [k for k in want['params'] if not torch.equal(want['params'][k], got['params'][k])]
+        mismatched += [f'mu{i}' for i, (a, b) in enumerate(zip(want['opt_state']['mu'], got['opt_state']['mu']))
+                       if not torch.equal(a, b)]
+        mismatched += [f'ema {k}' for k in want['ema_params'] if not torch.equal(want['ema_params'][k],
+                                                                               got['ema_params'][k])]
+        if first_saved['epoch'] != 1 or mismatched or got['step'] != want['step']:
+            raise AssertionError(f'trainer: the restored state is not the saved one: {mismatched[:5]}')
+        rows = _jsonl(os.path.join(run, 'metrics.jsonl'))
+        check_trainer_log(rows, [0, 1, 2])
+        train_rows = [r for r in rows if 'train_loss' in r]
+        log(f'trainer: resumed from last at epoch 2 in {resume_s:.1f} s; restored parameters, Adam moments and EMA '
+            f'equal the saved ones bit for bit ({len(want["params"])} tensors each); metrics.jsonl train rows '
+            f'{[r["step"] for r in train_rows]}')
+    finally:
+        loop.Trainer.train_epoch, checkpointing.CheckpointManager.save = orig_epoch, orig_save
+        checkpointing.CheckpointManager.restore = orig_restore
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_flags
+
+    # (d) The exported folder, served in bf16 on one batch of the val nights.
+    model = api.load_model(os.path.join(run, 'model'), precision='bfloat16')
+    dev = next(model.parameters()).device
+    val = sorted(os.path.join(corpus, ds, 'val', f) for ds in ('mesa', 'shhs')
+                 for f in os.listdir(os.path.join(corpus, ds, 'val')))[:TRAINER_BATCH]
+    x, _ = collate([ParquetDataset(val, list(TRAINER_SPE))[i] for i in range(len(val))])
+    with torch.inference_mode():
+        hyp = model({k: torch.from_numpy(v).to(dev, torch.bfloat16) for k, v in x.items()}).argmax(-1).cpu().numpy()
+    S = int(round(TRAIN_HOURS * 120))
+    if hyp.shape != (len(val), S) or hyp.min() < 0 or hyp.max() > 3:
+        raise AssertionError(f'trainer: exported model served bad hypnograms: {hyp.shape}, {hyp.min()}..{hyp.max()}')
+    log(f'trainer: {run}/model served {len(val)} val nights in bf16 through load_model: hypnograms {hyp.shape}, '
+        f'classes {sorted(set(hyp.ravel().tolist()))}')
+    del model
+
+    # (e) Batch-size tuning of the f32 flagship on ten-hour nights.
+    torch.cuda.empty_cache()
+    cfg = compose(train_cli.CONFIG_DIR.as_posix(), 'main', [])
+    tune_model = build_model(cfg['model'], generator=torch.Generator().manual_seed(0))
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    tuned = tune_batch_size(tune_model, columns=list(TRAINER_SPE), epochs_per_night=S)
+    tune_s = time.time() - t0
+    after = torch.cuda.memory_allocated()
+    if not 0 < tuned < 512:
+        raise AssertionError(f'trainer: tune_batch_size settled on {tuned}; expected an out-of-memory under 512')
+    if after - before > TUNE_MEMORY_SLACK:
+        raise AssertionError(f'trainer: tuning left {(after - before) / 2**20:.1f} MiB allocated on the card')
+    log(f'trainer: tune_batch_size (f32 flagship, {S} epochs a night, ceiling 512): {tuned} fits, {2 * tuned} ran out '
+        f'of memory, {tune_s:.1f} s; memory allocated {before / 2**20:.1f} MiB before, {after / 2**20:.1f} MiB after')
+
+    eval_rows = [r for r in rows if 'val_loss' in r]
+    test_rows = [r for r in rows if any(k.startswith('test_eval_seconds_') for k in r)]
+    line = dict(
+        card=card, hours=TRAIN_HOURS, batch=TRAINER_BATCH, accumulate=2, precision='float32',
+        corpus_mib=n_bytes / 2**20, corpus_write_s=write_s, fit_s=fit_s, resume_s=resume_s,
+        steps_per_s=[r['train_steps_per_sec'] for r in train_rows],
+        host_loader_frac=[r['host_loader_frac'] for r in train_rows],
+        eval_s={r['step']: {k[len('val_eval_seconds_'):]: v for k, v in r.items() if k.startswith('val_eval_seconds_')}
+                for r in eval_rows},
+        test_eval_s=[{k[len('test_eval_seconds_'):]: v for k, v in r.items() if k.startswith('test_eval_seconds_')}
+                     for r in test_rows],
+        train_loss=[r['train_loss'] for r in train_rows], val_loss=[r['val_loss'] for r in eval_rows],
+        k1_launches_per_micro_step=k1_per_micro_step, peak_gib=fit_peak,
+        tuned_batch=tuned, oom_batch=2 * tuned, tune_s=tune_s,
+        tune_memory_mib={'before': before / 2**20, 'after': after / 2**20}, phase_s=time.time() - t_phase,
+    )
+    return line, k1_per_micro_step
+
+
 def main() -> int:
     import torch
 
@@ -1500,15 +1756,18 @@ def main() -> int:
         train_line, k1_train, k2_train = phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults)
         families_line, k3_causal = phase_families(torch, k1, k3, wav2sleep, pipeline, train_bench, card, fps, work,
                                                    tf32_defaults)
+        torch.cuda.empty_cache()
+        trainer_line, k1_trainer = phase_trainer(torch, k1, k3, card, work, tf32_defaults)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
         # K1 line: bf16, identity phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the f32 causal serving path; train_launches: per
-        # training step of phase 11 (a) (forward and recompute).
+        # training step of phase 11 (a) (forward and recompute);
+        # trainer_launches: per training micro-step of phase 13's main().
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
-             train_launches=k1_train, max_abs_err=k1_err, **k1_line),
+             train_launches=k1_train, trainer_launches=k1_trainer, max_abs_err=k1_err, **k1_line),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the same path in the kernel-statistics configuration;
         # train_launches: per training step of phase 11 (c).
@@ -1529,6 +1788,7 @@ def main() -> int:
     log(f'nvidia-smi: {card}')
     print(json.dumps({'train': train_line}))
     print(json.dumps({'families': families_line}))
+    print(json.dumps({'trainer': trainer_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

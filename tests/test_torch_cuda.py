@@ -10,6 +10,7 @@ no JAX, so it also runs where JAX is not installed:
 
 import contextlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -778,3 +779,193 @@ def test_f32_ppgnet_step_matches_the_cpu_under_torchs_default_flags(card_default
         else:
             torch.testing.assert_close(s1[k], v, rtol=1e-4, atol=1e-4 * float(v.abs().max()))
     assert d_params <= 5e-4 and d_noisy <= 2.01 * TRAIN_LR and n <= 0.2 * total
+
+
+# ---------------------------------------------------------------- the trainer
+
+
+FIT_EPOCHS_PER_NIGHT = 6
+
+
+def _write_fit_corpus(root):
+    """mesa and shhs, 4 nights a split, 6 epochs a night, the four signals
+    with a stage-dependent amplitude (data.parquet.write_night)."""
+    from wav2sleep_tpu_torch.data.parquet import write_night
+
+    rng = np.random.default_rng(0)
+    spe = {'ECG': 1024, 'PPG': 1024, 'ABD': 256, 'THX': 256}
+    for ds in ('mesa', 'shhs'):
+        for split in ('train', 'val', 'test'):
+            os.makedirs(os.path.join(root, ds, split))
+            for n in range(4):
+                labels = rng.integers(0, 4, size=FIT_EPOCHS_PER_NIGHT).astype(np.float32)
+                cols = {k: (np.repeat(labels + 1.0, n_) * np.tile(np.sin(np.arange(n_) / 3.0), FIT_EPOCHS_PER_NIGHT)
+                            + 0.05 * rng.normal(size=n_ * FIT_EPOCHS_PER_NIGHT)).astype(np.float32)
+                        for k, n_ in spe.items()}
+                write_night(os.path.join(root, ds, split, f'{ds}-{n}.parquet'), {**cols, 'Stage': labels})
+
+
+def _fit_trainer(root, log_dir, model, device, **kw):
+    from wav2sleep_tpu_torch.train.datamodule import SleepDataModule
+    from wav2sleep_tpu_torch.train.loop import Trainer
+
+    dm = SleepDataModule(columns=['ABD', 'THX', 'ECG', 'PPG'], data_location=str(root), train_datasets=['mesa', 'shhs'],
+                         val_datasets=['mesa', 'shhs'], batch_size=4, val_batch_size=4, num_workers=1,
+                         pad_to_epochs=FIT_EPOCHS_PER_NIGHT, max_length_hours=1, device=device)
+    return Trainer(model=model, datamodule=dm, epochs=2, lr=3e-3, warmup_steps=5, tau=1000.0, flip_polarity=False,
+                   log_dir=str(log_dir), seed=0, progress_bar=False, **kw)
+
+
+def _narrow_fit_model():
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+
+    cfg = flagship_config(16, 16)  # every k3 conv on K1
+    cfg['epoch_mixer']['dropout'] = cfg['sequence_mixer']['dropout'] = 0.0
+    return build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0))
+
+
+def test_trainer_fit_on_the_card_matches_the_cpu(card_default_flags, tmp_path):
+    """A narrow 2-epoch fit (2 steps an epoch, EMA on) on the card, K1 on
+    the path, under torch's default flags, with the same trainer on the CPU
+    following it: before each step and each evaluation the CPU trainer takes
+    the card's state (checkpointing's state tree), then both take the step
+    on the batch of their own loaders, which must be equal, or evaluate. Each step is held to the card step
+    test's gates (loss and gradient norm within 5e-4 relative to 1 +
+    |value|; parameters within 5e-4 outside the elements whose Adam first
+    moments the devices put over 10% apart, those within 2.01 lr and at most
+    1%), each evaluation's losses within 5e-4 relative. Free-running, the
+    two fits part by more: Adam at eps 1e-8 moves an element whose
+    gradient is within f32 noise by lr in that noise's sign, and the 4 steps
+    compound it (ROADMAP §C.7)."""
+    import copy
+
+    from wav2sleep_tpu_torch.train.checkpointing import load_state_tree, state_tree
+
+    root = tmp_path / 'corpus'
+    _write_fit_corpus(str(root))
+    model = _narrow_fit_model()
+    card = _fit_trainer(root, tmp_path / 'card', copy.deepcopy(model), card_default_flags, ema_decay=0.9,
+                        ema_start_step=0)
+    cpu = _fit_trainer(root, tmp_path / 'cpu', copy.deepcopy(model), 'cpu', ema_decay=0.9, ema_start_step=0)
+    card.ensure_state()
+    cpu.ensure_state()
+    steps, evals = [], []
+    card_step, card_evaluate = card._train_step, card.evaluate
+    # The CPU trainer's batches come from its own loader (the same seed and
+    # epochs), so a fault in staging the card's batch shows as a mismatch.
+    cpu_items = (item for epoch in range(2) for item in cpu.datamodule.train_loader(epoch))
+
+    def both_step(state, batch, seed):
+        load_state_tree(cpu.state, state_tree(state))
+        lr = card.opt.lr(state.opt_state)
+        cx, cy = cpu._stage_train(*next(cpu_items))
+        x, y = batch
+        assert set(x) == set(cx)
+        for k, v in cx.items():
+            torch.testing.assert_close(x[k].cpu(), v, rtol=0, atol=0)
+        torch.testing.assert_close(y.cpu(), cy, rtol=0, atol=0)
+        _, cm = cpu._train_step(cpu.state, (cx, cy), seed)
+        state, m = card_step(state, batch, seed)
+        mu0 = [t.clone() for t in cpu.state.opt_state.mu]
+        mu1 = [t.to('cpu', copy=True) for t in state.opt_state.mu]
+        noisy = [(b - a).abs() > NOISY_MOMENT * a.abs() for a, b in zip(mu0, mu1)]
+        p0 = [p.detach().clone() for p in cpu.state.params.values()]
+        p1 = [p.detach().to('cpu', copy=True) for p in state.params.values()]
+        steps.append(dict(loss=(float(cm['loss']), float(m['loss'])), gn=(float(cm['grad_norm']), float(m['grad_norm'])),
+                          lr=lr, p0=p0, p1=p1, noisy=noisy))
+        return state, m
+
+    def both_evaluate(mode='val', epoch=None):
+        out = card_evaluate(mode, epoch)
+        load_state_tree(cpu.state, state_tree(card.state))
+        evals.append((cpu.evaluate(mode, epoch), out))
+        return out
+
+    card._train_step, card.evaluate = both_step, both_evaluate
+    k1.LAUNCHES = 0
+    card.fit()
+    assert next(cpu_items, None) is None
+    assert card.device.type == 'cuda' and k1.LAUNCHES >= 4 * 160  # K1 on every micro-step, forward and recompute
+    assert len(steps) == 4 and len(evals) == 2
+    worst = {'step': 0.0, 'eval': 0.0, 'params': 0.0, 'noisy': 0.0, 'share': 0.0}
+    for s in steps:
+        for a, b in (s['loss'], s['gn']):
+            worst['step'] = max(worst['step'], abs(b - a) / (1 + abs(a)))
+        n = sum(int(v.sum()) for v in s['noisy'])
+        worst['share'] = max(worst['share'], n / sum(v.numel() for v in s['noisy']))
+        for a, b, noisy in zip(s['p0'], s['p1'], s['noisy']):
+            torch.testing.assert_close(torch.where(noisy, a, b), a, atol=5e-4, rtol=5e-4)
+            worst['params'] = max(worst['params'], float(torch.where(noisy, 0.0, b - a).abs().max()))
+            gap = float(torch.where(noisy, b - a, 0.0).abs().max())
+            worst['noisy'] = max(worst['noisy'], gap)
+            assert gap <= 2.01 * s['lr']
+    for theirs, ours in evals:
+        assert set(theirs) == set(ours) and len(ours) == 1 + 2 + 6
+        for k, v in theirs.items():
+            worst['eval'] = max(worst['eval'], abs(ours[k] - v) / (1 + abs(v)))
+    print(f'trainer fit, card vs CPU from the card\'s state each step: {worst} on {torch.cuda.get_device_name(0)}')
+    assert worst['step'] <= 5e-4 and worst['eval'] <= 5e-4 and worst['share'] <= NOISY_SHARE
+
+
+def test_staging_ring_waits_before_reusing_a_slot(card):
+    """A slot's copy queued behind a busy stream: claiming the slot again
+    waits for it, so writing the slot afterwards cannot reach the copy."""
+    from wav2sleep_tpu_torch.train.loop import StagingRing
+
+    ring = StagingRing(2, card)
+    j = ring.claim()
+    buf = ring.buffer(j, 'x', torch.float32, (1 << 22,))
+    buf.fill_(1.0)
+    torch.cuda._sleep(200_000_000)  # holds the stream ~0.1 s
+    dev = ring.ship(j, {'x': buf})['x']
+    assert ring.claim() != j
+    assert ring.claim() == j  # waits for the first copy
+    buf.fill_(2.0)
+    assert bool((dev == 1.0).all())
+    assert ring.buffer(j, 'x', torch.float32, (1 << 22,)) is buf  # made once, reused
+
+
+def test_trainer_staging_under_back_to_back_steps(card, tmp_path):
+    """The card trainer's own parquet batches, both epochs' (16 nights of
+    one row), staged back to back through a ring of 2 while the stream is
+    held: every batch reaches the card as the CPU data module's loader gives
+    it on the host, in bf16, q8 and lossless."""
+    from wav2sleep_tpu_torch.ops import q8_transport as q8
+
+    root = tmp_path / 'corpus'
+    _write_fit_corpus(str(root))
+    host = _fit_trainer(root, tmp_path / 'host', _narrow_fit_model(), 'cpu').datamodule
+    host.batch_size = 1
+    batches = [item for epoch in (0, 1) for item in host.train_loader(epoch)]
+    assert len(batches) == 16
+    for kw in (dict(precision='bfloat16'), dict(input_transport='q8'), {}):
+        trainer = _fit_trainer(root, tmp_path / 'run', _narrow_fit_model(), None, stage_ring=2, **kw)
+        assert trainer.device.type == 'cuda'
+        trainer.datamodule.batch_size = 1
+        torch.cuda._sleep(200_000_000)
+        staged = [trainer._stage_train(x, y) for epoch in (0, 1) for x, y in trainer.datamodule.train_loader(epoch)]
+        assert len(staged) == len(batches)
+        for (x, y), (xd, yd) in zip(batches, staged):
+            np.testing.assert_array_equal(yd.cpu().numpy(), y)
+            for k, v in x.items():
+                if 'input_transport' in kw:
+                    want = q8.encode_batch({k: v})[k]
+                    for a, b in zip(xd[k], want):
+                        np.testing.assert_array_equal(a.cpu().numpy(), b)
+                else:
+                    dtype = torch.bfloat16 if kw else torch.float32
+                    torch.testing.assert_close(xd[k].cpu(), torch.from_numpy(v).to(dtype), rtol=0, atol=0)
+
+
+def test_trainer_datamodule_and_tuning_run_on_the_card_by_default(card, tmp_path):
+    from wav2sleep_tpu_torch.train.tuning import tune_batch_size
+
+    root = tmp_path / 'corpus'
+    _write_fit_corpus(str(root))
+    trainer = _fit_trainer(root, tmp_path / 'run', _narrow_fit_model(), None)
+    assert trainer.datamodule.device.type == 'cuda' and trainer.device.type == 'cuda'
+    assert next(trainer.model.parameters()).device.type == 'cuda'
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    assert tune_batch_size(_narrow_fit_model(), ['ECG', 'THX'], epochs_per_night=2, start=2, max_batch=8) == 8
+    assert torch.cuda.memory_allocated() - before <= 1 << 20

@@ -3,9 +3,11 @@ neither JAX, flax, optax, pandas, pyarrow nor yaml: the port and
 chip_smoke.py import, and drive their host paths (the native library, the
 EDF reader and writer, every extractor, weight conversion, a checkpoint
 folder, the serving CLI and the training bench on the CPU), with all of
-those unavailable. No
-file of the port names them in an import, at module level or inside a
-function."""
+those unavailable. No file of the port names them in an import, at module
+level or inside a function, with one exception: the parquet module
+(``data/parquet.py``) imports pyarrow inside its functions, and with pyarrow
+available (the rest still blocked) the dataset, the data module and a
+one-epoch fit run on the CPU."""
 
 import os
 import re
@@ -17,10 +19,13 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'wav2sleep_tpu_torch'
 BLOCKED = ('wav2sleep_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml')
 
-_PROBE = f'''
+# The one file of the port that may name pyarrow, inside its functions.
+PYARROW_MODULE = PORT / 'data' / 'parquet.py'
+
+_BLOCKER = '''
 import importlib, importlib.machinery, pkgutil, sys, tempfile
 import numpy as np
-BLOCKED = {BLOCKED!r}
+BLOCKED = %r
 for name in list(sys.modules):
     if name.split('.')[0] in BLOCKED:
         del sys.modules[name]
@@ -42,6 +47,9 @@ class Blocker:
         raise ImportError('blocked: ' + module.__name__)
 
 sys.meta_path.insert(0, Blocker())
+'''
+
+_PROBE = _BLOCKER % (BLOCKED,) + f'''
 import wav2sleep_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(wav2sleep_tpu_torch.__path__, 'wav2sleep_tpu_torch.'))
 for m in mods:
@@ -105,7 +113,69 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 31, proc.stdout  # every module of the package was reached
+    assert n >= 49, proc.stdout  # every module of the package was reached
+
+
+_FIT_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''
+import pyarrow  # available here
+from wav2sleep_tpu_torch import instantiate
+from wav2sleep_tpu_torch.data import parquet
+from wav2sleep_tpu_torch.data.dataset import ParquetDataset
+from wav2sleep_tpu_torch.train.datamodule import SleepDataModule
+from wav2sleep_tpu_torch.train.loop import Trainer
+from wav2sleep_tpu_torch.models.wav2sleep import flagship_config
+
+rng = np.random.default_rng(0)
+with tempfile.TemporaryDirectory() as d:
+    for split in ('train', 'val'):
+        for n in range(2):
+            folder = f'{d}/mesa/{split}'
+            import os
+            os.makedirs(folder, exist_ok=True)
+            labels = rng.integers(0, 4, size=2).astype(np.float32)
+            parquet.write_night(f'{folder}/n{n}.parquet', {'ECG': rng.normal(size=2048).astype(np.float32),
+                                                           'THX': rng.normal(size=512).astype(np.float32),
+                                                           'Stage': labels})
+    x, y = ParquetDataset([f'{d}/mesa/train/n0.parquet'], ['ECG', 'THX'])[0]
+    assert x['ECG'].shape == (2048,) and y.shape == (2,)
+    dm = SleepDataModule(columns=['ECG', 'THX'], data_location=d, train_datasets=['mesa'], val_datasets=['mesa'],
+                         batch_size=2, val_batch_size=2, num_workers=1, pad_to_epochs=2, device='cpu')
+    assert [name for name, _ in dm.val_loaders()] == ['all', 'mesa']
+    cfg = instantiate.target_config(**flagship_config(feature_dim=16, max_channels=16))
+    cfg['signal_encoders']['signal_map'] = {'ECG': 'ECG', 'THX': 'THX'}
+    trainer = Trainer(model=instantiate.build_model(cfg), datamodule=dm, epochs=1, log_dir=d + '/run', flip_polarity=False,
+                      progress_bar=False)
+    out = trainer.fit()
+    assert np.isfinite(out['val_loss']), out
+leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
+print('FIT', out['val_loss'], 'LEAKED', leaked)
+'''
+
+
+def test_parquet_path_and_a_fit_with_pyarrow_only():
+    """pyarrow available, the JAX package, JAX, pandas and yaml blocked: the
+    dataset, the data module and a one-epoch CPU fit run."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    proc = subprocess.run(
+        [sys.executable, '-c', _FIT_PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert 'LEAKED []' in proc.stdout, proc.stdout
+
+
+def test_only_the_parquet_module_names_pyarrow_and_none_pandas_or_yaml():
+    """No import of pandas or yaml anywhere in the port or chip_smoke.py;
+    pyarrow only in ``data/parquet.py``, and there only inside functions
+    (indented), so the module imports without it."""
+    any_import = re.compile(r'^(\s*)(?:import|from)\s+(pandas|pyarrow|yaml)\b', re.M)
+    offenders = []
+    for p in _port_files():
+        for m in any_import.finditer(p.read_text()):
+            if p == PYARROW_MODULE and m.group(2) == 'pyarrow' and m.group(1):
+                continue
+            offenders.append(f'{p.relative_to(ROOT)}:{m.group(0).strip()!r}')
+    assert not offenders, offenders
+    assert any_import.search(PYARROW_MODULE.read_text())  # the exception is used
 
 
 def _port_files():
@@ -113,7 +183,9 @@ def _port_files():
     assert len(files) >= 20
     for name in ('csrc/conv_variants.cu', 'ops/conv_variants.py', 'profile_variants.py', 'ops/q8_transport.py',
                  'train/step.py', 'train/masker.py', 'train/metrics.py', 'train/scheduler.py', 'train_bench.py',
-                 'profile_train.py'):
+                 'profile_train.py', 'data/parquet.py', 'data/dataset.py', 'train/datamodule.py', 'train/loop.py',
+                 'train/checkpointing.py', 'train/tuning.py', 'train/supervise.py', 'train/__main__.py', 'config.py',
+                 'stats.py', 'log.py', 'native/src/mulaw8.cpp'):
         assert PORT / name in files, name
     return files
 

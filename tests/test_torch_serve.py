@@ -58,7 +58,7 @@ CONFIGS = {
                 'interp': '${x}', 'quote': "it's", 'dash': '-x', 'nested': [{'a': 1, 'b': [2, [3, 4]]}, [], {}]},
 }
 
-BAD_YAML = ['a: &x 1', 'a: *x', 'a: !!str 1', 'a: [1, 2]', 'a: {b: 1}', 'a: |\n  x', 'a: >\n  x', 'a: "x\n  y"',
+BAD_YAML = ['a: &x 1', 'a: *x', 'a: !!str 1', 'a: [[1], 2]', 'a: {b: 1}', 'a: |\n  x', 'a: >\n  x', 'a: "x\n  y"',
             '---\na: 1', 'a: 1\n  b: 2', 'a: b: c', 'a: 0x10', 'a: 1\na: 2', '? a\n: b', 'a:\n\tb: 1']
 
 

@@ -5,8 +5,9 @@ both families. A folder holds ``config.yaml`` and ``state_dict.pth`` (the
 reference's deployable format) or ``params.npz`` (the JAX package's); see
 ``checkpoint``. The loaded module answers what the JAX package's
 ``W2SModel`` answers for its family: ``valid_signals`` (``['PPG']`` for
-SleepPPG-Net), ``num_classes`` and ``causal``. ``predict_on_folder`` and
-the parquet path are not ported yet (ROADMAP §A.4).
+SleepPPG-Net), ``num_classes`` and ``causal``. ``W2SModel``, ``prepare``,
+``load_dataset``, ``predict`` and ``predict_on_folder`` are not ported yet
+(ROADMAP §A.5).
 """
 
 from __future__ import annotations

@@ -11,9 +11,11 @@ deployable folder holds:
   keys), turned into a ``state_dict`` by ``convert.from_jax_variables``.
 
 The YAML subset is what ``yaml.safe_dump(cfg, sort_keys=False)`` writes for a
-model config: block mappings and sequences, plain and quoted strings, int,
-float, bool, null and the empty ``[]`` and ``{}``. The reader also skips
-comments. Anything else (anchors, tags, flow collections, block or
+model config and what the training configs under ``scripts/config`` and
+their command-line overrides use: block mappings and sequences, plain and
+quoted strings, int, float, bool, null, the empty ``[]`` and ``{}`` and flow
+sequences of scalars (``[mesa, shhs]``). The reader also skips comments.
+Anything else (anchors, tags, nested or mapping flow collections, block or
 multi-line scalars, several documents) is refused with a ``ValueError``,
 never guessed.
 """
@@ -166,15 +168,40 @@ def _scalar(text: str, where: str) -> Any:
     text = _strip_comment(text)
     if not text:
         return None
-    if text in ('[]', '{}'):
-        return [] if text == '[]' else {}
+    if text == '{}':
+        return {}
+    if text[:1] == '[' and text.endswith(']'):
+        return _flow_sequence(text[1:-1], where)
     if text[:1] in '[{':
-        raise ValueError(f'{where}: flow collections other than [] and {{}} are not supported')
+        raise ValueError(f'{where}: flow collections other than [...] of scalars and {{}} are not supported')
     if text[:1] in '&*!|>%@`?' or text in ('-', '---', '...') or text.startswith('- '):
         raise ValueError(f'{where}: {text!r}: anchors, aliases, tags, block scalars and the like are not supported')
     if ': ' in text or text.endswith(':'):
         raise ValueError(f'{where}: a mapping cannot start after a key on the same line')
     return _resolve_plain(text, where)
+
+
+def _flow_sequence(body: str, where: str) -> list:
+    """The items of a flow sequence ``[a, 'b', 1]`` (its text between the
+    brackets): plain or quoted scalars, a trailing comma allowed."""
+    items: list = []
+    rest = body.strip()
+    while rest:
+        if rest[:1] in ("'", '"'):
+            value, rest = _quoted(rest, where)
+            rest = rest.strip()
+        else:
+            cut = rest.find(',')
+            text = (rest if cut < 0 else rest[:cut]).strip()
+            rest = '' if cut < 0 else rest[cut:]
+            if not text or text[:1] in '[]{}&*!|>%@`#' or ': ' in text or text.endswith(':'):
+                raise ValueError(f'{where}: flow sequences take plain or quoted scalars only, got {text!r}')
+            value = _resolve_plain(text, where)
+        items.append(value)
+        if rest and not rest.startswith(','):
+            raise ValueError(f'{where}: expected "," between the items of a flow sequence')
+        rest = rest[1:].strip()
+    return items
 
 
 def _strip_comment(text: str) -> str:
@@ -298,6 +325,12 @@ def yaml_load(text: str) -> Any:
     if pos != len(lines.items):
         raise ValueError(f'line {lines.items[pos][2]}: unexpected indentation or content')
     return value
+
+
+def yaml_scalar(text: str) -> Any:
+    """One scalar or flow sequence of the subset, as ``yaml.safe_load``
+    reads it (``'1'`` -> 1, ``'[a,b]'`` -> ['a', 'b'], ``''`` -> None)."""
+    return _scalar(text.strip(), 'value')
 
 
 def _dump_scalar(v: Any) -> str:

@@ -1,1 +1,3 @@
-"""Host-side EDF reading and resampling for the port's serving pipelines (numpy only)."""
+"""Host-side data: EDF reading and resampling for the serving pipelines
+(numpy only), and the per-night parquet files and dataset of training
+(``parquet``, the one module that uses pyarrow, and ``dataset``)."""

@@ -7,21 +7,26 @@ JAX package's (``wav2sleep_tpu.models.*``); both spellings are read, for
 both families: the multi-modal wav2sleep (``wav2sleep_arguments`` turns its
 config into the keyword arguments of ``models.wav2sleep.build_wav2sleep``,
 with the JAX package's defaults for what the config leaves out) and
-SleepPPG-Net (``models.ppgnet``). Unknown ``_target_``s and unresolved
-``${...}`` interpolations raise ``ValueError``.
+SleepPPG-Net (``models.ppgnet``). A training config's masker
+(``wav2sleep_tpu.train.masker.SignalMasker``) becomes the port's
+``train.masker.SignalMasker`` (``instantiate``). Unknown ``_target_``s and
+unresolved ``${...}`` interpolations raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import torch
 from torch import nn
 
 from .models.ppgnet import build_ppgnet
 from .models.wav2sleep import build_wav2sleep
+from .train.masker import SignalMasker
 
 _MODULE = 'models.wav2sleep.'
 _PPGNET = 'models.ppgnet.SleepPPGNet'
+_MASKER = 'train.masker.SignalMasker'
 _PREFIXES = ('wav2sleep.', 'wav2sleep_tpu.')
 
 
@@ -83,12 +88,42 @@ def ppgnet_arguments(cfg: dict) -> dict:
     return _arguments(cfg)
 
 
-def build_model(cfg: dict) -> nn.Module:
-    """The port's model for a ``_target_`` config of either family (seeded
-    weights, to be replaced by a checkpoint's)."""
+def build_model(cfg: dict, generator: torch.Generator | None = None) -> nn.Module:
+    """The port's model for a ``_target_`` config of either family, with the
+    seeded init of ``generator`` (seed 0 without one), to be trained or
+    replaced by a checkpoint's weights."""
     if model_family(cfg) == 'ppgnet':
-        return build_ppgnet(**ppgnet_arguments(cfg))
-    return build_wav2sleep(**wav2sleep_arguments(cfg))
+        return build_ppgnet(generator, **ppgnet_arguments(cfg))
+    return build_wav2sleep(**wav2sleep_arguments(cfg), generator=generator)
+
+
+def instantiate(cfg: dict):
+    """A model (``build_model``) or a training config's masker from its
+    ``_target_`` config."""
+    if cfg.get('_target_') in (p + _MASKER for p in _PREFIXES):
+        return SignalMasker(**_arguments(cfg))
+    return build_model(cfg)
+
+
+# The JAX package's model targets under the reference's names, which both
+# packages and the reference instantiate.
+_TARGET_TO_REFERENCE = {f'wav2sleep_tpu.{m}': f'wav2sleep.{m}' for m in (
+    _MODULE + 'Wav2Sleep', _MODULE + 'SignalEncoders', _MODULE + 'MultiModalAttentionEmbedder',
+    _MODULE + 'SequenceCNN', _PPGNET)}
+
+
+def reference_compatible_config(cfg: Any) -> Any:
+    """``cfg`` with the model ``_target_``s under the reference's names and
+    without ``remat`` (a training setting the reference does not take), as
+    the JAX package exports a checkpoint folder's ``config.yaml``."""
+    if isinstance(cfg, dict):
+        out = {k: reference_compatible_config(v) for k, v in cfg.items() if k != 'remat'}
+        if '_target_' in out:
+            out['_target_'] = _TARGET_TO_REFERENCE.get(out['_target_'], out['_target_'])
+        return out
+    if isinstance(cfg, list):
+        return [reference_compatible_config(v) for v in cfg]
+    return cfg
 
 
 def target_config(**arguments) -> dict:

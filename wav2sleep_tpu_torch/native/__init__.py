@@ -1,4 +1,5 @@
-"""The port's native host library: EDF decode + resample and the f64 causal EMA.
+"""The port's native host library: EDF decode + resample, the f64 causal EMA
+and the q8 (mu-law) encoder of the training transport.
 
 C++ sources under ``native/src`` (copies of the JAX package's host kernels
 that the port uses) are compiled with ``g++`` on first use into
@@ -108,6 +109,10 @@ def _configure(lib: ctypes.CDLL) -> None:
 
     lib.w2s_ema_normalize_f32.argtypes = [f32, i64, d, d, d, d, d, d, d, f32, ctypes.c_void_p]
     lib.w2s_ema_normalize_f32.restype = None
+    lib.w2s_ema_stats.argtypes = [f64, i64, d, d, d, d, d, d, d, f64, f64, u8]
+    lib.w2s_ema_stats.restype = None
+    lib.w2s_mulaw8_encode_f32.argtypes = [f32, i64, i8, ctypes.POINTER(ctypes.c_float)]
+    lib.w2s_mulaw8_encode_f32.restype = ctypes.c_int32
     lib.w2s_decode_resample.argtypes = [i16, i64, i64, i64, i64, d, d, d, d, d, d, f64, i64, f32]
     lib.w2s_decode_resample.restype = None
     lib.w2s_resample_q8.argtypes = [i16, i64, i64, i64, i64, d, d, i64, i8, ctypes.POINTER(d)]

@@ -29,7 +29,10 @@ XLA outside its Pallas call. ``ema_normalize_reference`` is the plain
 PyTorch version (a time loop over ``[N]`` vectors); ``ema_normalize`` runs it
 for CPU tensors and launches the kernel, or raises, for CUDA tensors.
 ``ema_normalize_host`` is the native host library's f64 recurrence, the
-full-length reference for the kernel.
+full-length reference for the kernel; ``causal_rolling_normalize`` is the
+JAX package's f64 host normalization (f64 out), on the library's
+``w2s_ema_stats`` or a Python loop, which the dataset's causal mode takes
+for input that is not f32.
 """
 
 from __future__ import annotations
@@ -214,3 +217,69 @@ def ema_normalize_host(
         outlier_threshold_sigma, min_ss, eps, out, None,
     )
     return out
+
+
+def _warmup_stats(signal: np.ndarray, sampling_freq: float, tau_seconds: float,
+                  baseline_tau_seconds: float | None, min_sigma_sq: float) -> tuple[float, float, float, float]:
+    """(alpha_b, alpha_v, mu_init, sigma_sq_init) of a row, as the JAX
+    package's host normalization computes them."""
+    ab, av = _rates(sampling_freq, tau_seconds, baseline_tau_seconds)
+    warm = signal[: warmup_length(len(signal), sampling_freq, tau_seconds, baseline_tau_seconds)]
+    return ab, av, float(np.mean(warm)), max(float(np.var(warm)), min_sigma_sq)
+
+
+def _ema_stats_numpy(signal, alpha_b, alpha_v, mu_init, sigma_sq_init, threshold_sigma, min_sigma_sq, eps):
+    """The recurrence as a Python loop in f64: (mu, sigma_sq, outlier)."""
+    n = len(signal)
+    mu = np.empty(n, dtype=np.float64)
+    sigma_sq = np.empty(n, dtype=np.float64)
+    outlier = np.zeros(n, dtype=bool)
+    mu[0] = mu_init
+    sigma_sq[0] = max(sigma_sq_init, min_sigma_sq, eps)
+    for t in range(1, n):
+        mu[t] = alpha_b * signal[t] + (1.0 - alpha_b) * mu[t - 1]
+        residual = signal[t] - mu[t]
+        threshold = threshold_sigma * np.sqrt(max(sigma_sq[t - 1], min_sigma_sq))
+        if abs(residual) > threshold:
+            outlier[t] = True
+            residual = threshold if residual > 0 else -threshold
+        sigma_sq[t] = alpha_v * residual * residual + (1.0 - alpha_v) * sigma_sq[t - 1]
+    return mu, sigma_sq, outlier
+
+
+def causal_rolling_normalize(
+    signal: np.ndarray,
+    sampling_freq: float,
+    tau_seconds: float = 900.0,
+    eps: float = 1e-6,
+    outlier_threshold_sigma: float = NORM_OUTLIER_THRESHOLD,
+    return_outlier_mask: bool = False,
+    baseline_tau_seconds: float | None = None,
+    min_sigma: float = CAUSAL_NORM_MIN_SIGMA,
+    backend: str = 'auto',
+):
+    """Causal EMA z-score of a 1-D numpy row, ``(x - mu_t) / sqrt(max(
+    sigma_sq_t, min_sigma**2))`` with the recurrence in f64; returns f64
+    (and the outlier mask with ``return_outlier_mask``). ``backend`` is
+    'auto' (the native library where it builds, else the loop), 'cpp' or
+    'numpy'."""
+    x = np.asarray(signal)
+    if x.ndim != 1:
+        raise ValueError(f'Expected 1-D signal, got shape {x.shape}')
+    if not len(x):
+        return (signal, np.zeros(0, dtype=bool)) if return_outlier_mask else signal
+    min_ss = min_sigma * min_sigma
+    args = (*_warmup_stats(x, sampling_freq, tau_seconds, baseline_tau_seconds, min_ss),
+            outlier_threshold_sigma, min_ss, eps)
+    x64 = np.ascontiguousarray(x, dtype=np.float64)
+    lib = native.get_lib() if backend in ('auto', 'cpp') else None
+    if backend == 'cpp' and lib is None:
+        raise RuntimeError('C++ backend requested but native library unavailable.')
+    if lib is not None:
+        mu, sigma_sq, outlier = np.empty(len(x)), np.empty(len(x)), np.zeros(len(x), np.uint8)
+        lib.w2s_ema_stats(x64, len(x), *args, mu, sigma_sq, outlier)
+        outlier = outlier.astype(bool)
+    else:
+        mu, sigma_sq, outlier = _ema_stats_numpy(x64, *args)
+    normalized = (x - mu) / np.sqrt(np.maximum(sigma_sq, min_ss))
+    return (normalized, outlier) if return_outlier_mask else normalized

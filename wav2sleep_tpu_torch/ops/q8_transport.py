@@ -2,8 +2,11 @@
 linear int16 (q16).
 
 Port of ``wav2sleep_tpu/ops/q8_transport.py``. The host half encodes each
-(night, signal) row against its own peak with numpy; the device half decodes
-on the card, before the polarity flip and the modality dropout (mu-law is
+(night, signal) row against its own peak in the native host library
+(``native/src/mulaw8.cpp``) for q8, or with numpy where the library
+cannot be built, to the same codes; q16 is one vectorized numpy pass, as
+in the JAX package (no per-sample transcendentals). The device half
+decodes on the card, before the polarity flip and the modality dropout (mu-law is
 odd-symmetric, so flipping the decode equals flipping before the encode).
 
 Contract:
@@ -21,10 +24,13 @@ present [B] bool)}``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
+
+from .. import native
 
 _LOG256 = math.log(256.0)
 _CODES = 127
@@ -71,20 +77,37 @@ def _slot_buffers(slot: dict, name: str, shape: tuple, code_dtype) -> tuple:
     return bufs
 
 
+def _encode_rows(lib_fn, arr: np.ndarray, codes: np.ndarray, peaks: np.ndarray, present: np.ndarray,
+                 what: str) -> None:
+    """Encode each row of ``arr`` with a native row encoder."""
+    peak = ctypes.c_float()
+    for b in range(arr.shape[0]):
+        ok = lib_fn(arr[b], arr.shape[1], codes[b], ctypes.byref(peak))
+        if ok < 0:
+            raise ValueError(_MIXED.format(what))
+        peaks[b] = peak.value
+        present[b] = bool(ok)
+
+
 def encode_batch(x: dict[str, np.ndarray], slot: dict | None = None) -> dict[str, tuple]:
-    """q8-encode a host batch ``{signal: f32 [B, T]}`` row by row.
+    """q8-encode a host batch ``{signal: f32 [B, T]}`` row by row, natively
+    where the host library builds, else with ``encode_row_numpy``.
 
     ``slot`` is an optional dict of pooled output buffers, reused across
     calls (created or resized on demand); its arrays may be views of pinned
     tensors.
     """
+    lib = native.get_lib()
     slot = {} if slot is None else slot
     out = {}
     for name, arr in x.items():
         arr = np.ascontiguousarray(arr, np.float32)
         codes, peaks, present = _slot_buffers(slot, name, arr.shape, np.int8)
-        for b in range(arr.shape[0]):
-            _, peaks[b], present[b] = encode_row_numpy(arr[b], out=codes[b])
+        if lib is not None:
+            _encode_rows(lib.w2s_mulaw8_encode_f32, arr, codes, peaks, present, 'q8')
+        else:
+            for b in range(arr.shape[0]):
+                _, peaks[b], present[b] = encode_row_numpy(arr[b], out=codes[b])
         out[name] = (codes, peaks, present)
     return out
 

@@ -1,4 +1,5 @@
-"""Signal names, sampling geometry and causal-normalization constants.
+"""Signal and label names, sampling geometry, causal-normalization constants,
+dataset names and label maps.
 
 The port's own copy of the values it uses from ``wav2sleep_tpu/settings.py``
 (the two must agree; ``tests/test_torch_imports.py`` checks that they do).
@@ -11,7 +12,10 @@ ABD = 'ABD'
 THX = 'THX'
 EOG_L = 'EOG-L'
 EOG_R = 'EOG-R'
+LABEL = 'Stage'
 
+# Recording length in hours during training. One night = 1,200 sleep epochs of 30 s.
+TRAINING_LENGTH_HOURS = 10
 EPOCH_SECONDS = 30.0
 
 # Samples per 30-second sleep epoch on each signal's model grid.
@@ -32,3 +36,25 @@ CAUSAL_NORM_TAU_SECONDS = 900.0  # variance-tracking time constant (15 min)
 NORM_OUTLIER_THRESHOLD = 4.0  # sigma threshold for residual clipping
 CAUSAL_NORM_BASELINE_TAU_SECONDS = 120.0  # baseline (mean) tracking time constant
 CAUSAL_NORM_MIN_SIGMA = 0.1  # sigma floor against near-zero variance
+
+# PSG datasets.
+SHHS = 'shhs'
+MESA = 'mesa'
+CFS = 'cfs'
+CHAT = 'chat'
+CCSHS = 'ccshs'
+MROS = 'mros'
+WSC = 'wsc'
+CENSUS = 'census'  # census-balanced benchmark split (Jones et al.)
+
+TRAIN, VAL, TEST = 'train', 'val', 'test'
+
+# Five-class sleep stages to integer labels, per number of classes; four
+# classes merge N1 and N2 into light sleep.
+INTEGER_LABEL_MAPS = {
+    4: {0: 0, 1: 1, 2: 1, 3: 2, 4: 3},
+    5: {0: 0, 1: 1, 2: 2, 3: 3, 4: 4},
+}
+
+# Label of unscored or ignored epochs.
+IGNORE_LABEL = -1

@@ -4,8 +4,10 @@ from __future__ import annotations
 
 import contextlib
 import queue
+import random
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -55,3 +57,11 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fix_seeds(seed: int = 42) -> None:
+    """Seed Python's, numpy's and torch's global generators (the model's
+    init and host-side shuffles draw from them)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
