@@ -142,13 +142,29 @@ Phases (any failure raises, so the script exits non-zero):
    flagship on ten-hour nights up to its ceiling of 512: the tuned batch,
    the batch that ran out of memory and the seconds, with the card's
    allocated memory back within 64 MiB. Prints a ``trainer`` JSON line.
+14. API: the inference API (``wav2sleep_tpu_torch.api``) on the card. (a)
+   ``predict_on_folder`` with the device and batch at their defaults (the
+   card, 4) over 4 of phase 8's ten-hour EDF nights (night 5 without Thor)
+   from phase 9's checkpoint folder, f32 then bf16: every night 1,200
+   epochs in 0..3, each CSV 1,200 rows stamped from the EDF start + 30 s +
+   30/1024 s (the cache's first grid point) holding the predictions, K1
+   launched in every forward and no K2 or K3; ``prepare`` seconds a night,
+   ``predict`` nights/hour and ``save_predictions`` seconds; agreement with
+   phase 8's z-score hypnograms (report only). Then ``W2SModel.logits`` in
+   f32 on K1 against the same model with its convs plain, on the batch
+   ``predict`` forms: |d| <= 5e-4 (1 + |plain|). (b) ``python -m
+   wav2sleep_tpu_torch.cli.predict``'s ``main`` with ``--no-preprocess``
+   over phase 13's labeled val nights and its exported model: the kappa
+   and accuracy lines printed, CSVs with a Stage column. Prints an ``api``
+   JSON line.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train``, ``families`` and ``trainer`` lines come before the ``kernels``
+before it runs. The ``train``, ``families``, ``trainer`` and ``api`` lines come before the ``kernels``
 line; the line before the last is a JSON object describing the kernels (K1's
 and K2's entries also carry ``train_launches``, per training step, K1's
-``trainer_launches``, per training micro-step of phase 13, and K3's
+``trainer_launches``, per training micro-step of phase 13, and
+``api_launches``, phase 14's f32 ``predict_on_folder`` run, and K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -156,6 +172,7 @@ and K2's entries also carry ``train_launches``, per training step, K1's
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import os
 import re
@@ -1708,6 +1725,193 @@ def phase_trainer(torch, k1, k3, card, work, tf32_defaults):
     return line, k1_per_micro_step
 
 
+# Phase 14: the inference API. Four of phase 8's EDF nights (night 5 has no
+# Thor channel) through predict_on_folder, f32 and bf16, from phase 9's
+# checkpoint folder; predict's rate over all of phase 8's nights; then the
+# predict CLI over phase 13's labeled val nights.
+API_NIGHTS = (0, 1, 5, 9)
+API_BATCH = 4  # the API's default batch
+# f32 API logits on K1 against the same model with its convs plain, on the
+# card: |d| <= API_TOL * (1 + |plain|).
+API_TOL = 5e-4
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """Wall seconds of each call to ``module.<name>`` made inside the
+    block (the entry point calls them through the module)."""
+    seconds = {n: 0.0 for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] += time.perf_counter() - t0
+        return call
+
+    for n in names:
+        setattr(module, n, timed(n, saved[n]))
+    try:
+        yield seconds
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _read_csv_rows(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [line.split(',') for line in f.read().splitlines()]
+
+
+def _linked(folder: str, fps: list[str]) -> str:
+    os.makedirs(folder)
+    for fp in fps:
+        os.symlink(fp, os.path.join(folder, os.path.basename(fp)))
+    return folder
+
+
+def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
+    """Phase 14: ``api.predict_on_folder`` with the device and batch at
+    their defaults, f32 then bf16, on four ten-hour EDF nights from phase
+    9's checkpoint folder; the f32 logits on K1 against the plain path;
+    ``api.predict``'s rate over all of phase 8's nights; then
+    ``cli.predict.main`` over phase 13's labeled val nights with its
+    exported model. Returns the ``api`` line and K1's launches in the f32
+    ``predict_on_folder`` run."""
+    import io
+
+    from wav2sleep_tpu_torch import api
+    from wav2sleep_tpu_torch.cli import predict as predict_cli
+    from wav2sleep_tpu_torch.data.dataset import collate, pad_or_truncate_item
+    from wav2sleep_tpu_torch.data.edf import get_edf_start
+
+    t_phase = time.time()
+    n_epochs = int(round(HOURS * 120))
+    nights = sorted(fps[i] for i in API_NIGHTS)
+    inp = _linked(os.path.join(work, 'api_in'), nights)
+    ckpt, cache = os.path.join(work, 'checkpoint'), os.path.join(work, 'api_cache')
+    line = dict(card=card, nights=len(nights), hours=HOURS, batch=API_BATCH)
+    k1_api = None
+    for precision in ('float32', 'bfloat16'):
+        out = os.path.join(work, f'api_preds_{precision}')
+        with timed_calls(api, ('prepare', 'predict', 'save_predictions')) as seconds:
+            zero_counts(k1, k3)
+            t0 = time.perf_counter()
+            preds, labels = api.predict_on_folder(inp, out, model_folder=ckpt, precision=precision,
+                                                  tmp_root_folder=cache, return_tensors=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts(k1, k3)
+        forwards = -(-len(nights) // API_BATCH)
+        if labels is not None or [p.shape for p in preds] != [(n_epochs,)] * len(nights) or \
+                min(p.min() for p in preds) < 0 or max(p.max() for p in preds) > 3:
+            raise AssertionError(f'api {precision}: bad predictions {[(p.shape, p.min(), p.max()) for p in preds]}')
+        if launches['K1'] <= 0 or launches['K1'] % forwards or launches['K2'] or launches['K3']:
+            raise AssertionError(f'api {precision}: launches {launches} over {forwards} forwards')
+        for fp, pred in zip(nights, preds):
+            rel = os.path.relpath(os.path.join(inp, os.path.basename(fp)), os.sep)
+            rows = _read_csv_rows(os.path.join(out, os.path.splitext(rel)[0] + '.preds.csv'))
+            first = f'{get_edf_start(fp) + datetime.timedelta(seconds=30):%Y-%m-%d %H:%M:%S}.029296875'
+            if rows[0] != ['Timestamp', 'Pred'] or len(rows) != 1 + n_epochs or rows[1][0] != first or \
+                    [int(r[1]) for r in rows[1:]] != pred.tolist():
+                raise AssertionError(f'api {precision}: {rel} has {len(rows) - 1} rows from {rows[1][0]}, '
+                                     f'expected {n_epochs} from {first} holding the predictions')
+        agree = float(np.mean(np.concatenate([p == dict(out_z)[fp] for fp, p in zip(nights, preds)])))
+        line[precision] = dict(
+            wall_s=wall, prepare_s_per_night=seconds['prepare'] / len(nights), predict_s=seconds['predict'],
+            predict_forwards=forwards, save_predictions_s=seconds['save_predictions'],
+            k1_launches=launches['K1'], k1_launches_per_forward=launches['K1'] // forwards,
+            agree_with_phase8_zscore=agree,
+        )
+        if precision == 'float32':
+            k1_api = launches['K1']
+        log(f'api predict_on_folder {precision}: {len(nights)} EDF nights x {HOURS:g} h in {wall:.2f} s; prepare '
+            f'{seconds["prepare"] / len(nights):.2f} s a night, predict {seconds["predict"]:.3f} s '
+            f'({forwards} B={API_BATCH} forward, parquet read included), save_predictions '
+            f'{seconds["save_predictions"]:.3f} s; K1 {launches["K1"] // forwards} launches a forward; '
+            f'{len(nights)} CSV files of {n_epochs} rows from the EDF start + 30 s + 30/1024 s; epochs agreeing '
+            f'with phase 8\'s z-score hypnograms {agree:.5f} (report only) on {card}')
+
+    # The f32 API forward on K1 against the same module with its convs
+    # plain, on the batch predict formed.
+    model = api.W2SModel.load(ckpt)
+    signals = model.valid_signals
+    ds = api.load_dataset(api.prepare(inp, signals, tmp_root_folder=cache), signals,
+                          max_length_hours=10)
+    x, _ = collate([pad_or_truncate_item(ds[i], n_epochs) for i in range(len(ds))])
+    got = model.logits(x)
+    with plain_convs(layers, k1):
+        want = model.logits(x)
+    err = float(np.max(np.abs(got - want) / (1 + np.abs(want))))
+    if not np.isfinite(got).all() or err > API_TOL:
+        raise AssertionError(f'api: f32 logits on K1 vs plain, max |d| / (1 + |plain|) {err:.3e} > {API_TOL}')
+    line['f32_logits_vs_plain'] = err
+    log(f'api: f32 W2SModel.logits on K1 vs the plain path, B={len(ds)} x {HOURS:g} h: max |d| / (1 + |plain|) '
+        f'{err:.3e} (gate {API_TOL})')
+    del model, x
+
+    # (c) predict's rate over a folder: every night of phase 8 in the
+    # cache (prepare adds the ones (a) did not read), one timed predict
+    # call per precision with the default batch, warm from (a).
+    for fp in sorted(set(fps) - set(nights)):
+        os.symlink(fp, os.path.join(inp, os.path.basename(fp)))
+    t0 = time.perf_counter()
+    folder = api.prepare(inp, signals, tmp_root_folder=cache)
+    line['folder_prepare_s_per_night'] = (time.perf_counter() - t0) / (len(fps) - len(nights))
+    for precision in ('float32', 'bfloat16'):
+        model = api.W2SModel.load(ckpt, precision=precision)
+        ds = api.load_dataset(folder, signals, max_length_hours=10)
+        forwards = -(-len(ds) // API_BATCH)
+        zero_counts(k1, k3)
+        t0 = time.perf_counter()
+        preds, _ = api.predict(model, ds)
+        predict_s = time.perf_counter() - t0
+        launches = counts(k1, k3)
+        if len(preds) != len(fps) or any(p.shape != (n_epochs,) for p in preds) or \
+                launches['K1'] != forwards * line[precision]['k1_launches_per_forward']:
+            raise AssertionError(f'api predict {precision} over {len(fps)} nights: {len(preds)} results, {launches}')
+        line[precision]['folder'] = dict(nights=len(ds), forwards=forwards, predict_s=predict_s,
+                                         s_per_forward=predict_s / forwards, nights_per_hour=3600 * len(ds) / predict_s)
+        log(f'api predict {precision} over {len(ds)} ten-hour nights: {predict_s:.3f} s in {forwards} B={API_BATCH} '
+            f'forwards ({predict_s / forwards:.3f} s a forward, parquet read included; '
+            f'{3600 * len(ds) / predict_s:.0f} nights/hour) on {card}')
+        del model, ds, preds
+
+    # (b) The predict CLI over phase 13's labeled val nights, without
+    # preprocessing, with its exported model.
+    corpus = os.path.join(work, 'corpus')
+    val = _linked(os.path.join(work, 'api_val'), sorted(
+        os.path.join(corpus, ds_, 'val', f) for ds_ in ('mesa', 'shhs') for f in os.listdir(os.path.join(corpus, ds_, 'val'))))
+    out = os.path.join(work, 'api_cli_preds')
+    printed = io.StringIO()
+    zero_counts(k1, k3)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        predict_cli.main(['--input-folder', val, '--output-folder', out, '--model-folder',
+                          os.path.join(work, 'run', 'model'), '--no-preprocess'])
+    cli_s, cli_launches = time.perf_counter() - t0, counts(k1, k3)
+    text = printed.getvalue()
+    kappa = re.search(r"^Cohen's kappa: (-?[0-9.]+|nan)$", text, re.M)
+    acc = re.search(r'^Accuracy: ([0-9.]+|nan)$', text, re.M)
+    csvs = sorted(os.listdir(out))  # without preprocessing, relative to the input folder
+    if not (kappa and acc) or len(csvs) != len(os.listdir(val)) or cli_launches['K1'] <= 0:
+        raise AssertionError(f'api cli: printed {text!r}, wrote {csvs}, launches {cli_launches}')
+    for name in csvs:
+        rows = _read_csv_rows(os.path.join(out, name))
+        if rows[0] != ['Timestamp', 'Pred', 'Stage'] or len(rows) != 1 + n_epochs or rows[1][0] != '30.0':
+            raise AssertionError(f'api cli: {name} starts {rows[:2]} with {len(rows) - 1} rows')
+    line['cli'] = dict(nights=len(csvs), wall_s=cli_s, kappa=float(kappa.group(1)), accuracy=float(acc.group(1)),
+                       k1_launches=cli_launches['K1'])
+    log(f'api cli: python -m wav2sleep_tpu_torch.cli.predict --no-preprocess over {len(csvs)} labeled val nights '
+        f'in {cli_s:.1f} s (model load included): {text.strip()!r}; CSVs with Stage; K1 {cli_launches["K1"]} launches')
+    line['phase_s'] = time.time() - t_phase
+    log(f'api: phase 14 took {line["phase_s"]:.1f} s')
+    return line, k1_api
+
+
 def main() -> int:
     import torch
 
@@ -1758,16 +1962,20 @@ def main() -> int:
                                                    tf32_defaults)
         torch.cuda.empty_cache()
         trainer_line, k1_trainer = phase_trainer(torch, k1, k3, card, work, tf32_defaults)
+        torch.cuda.empty_cache()
+        api_line, k1_api = phase_api(torch, k1, k3, layers, card, fps, out_z, work)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
         # K1 line: bf16, identity phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the f32 causal serving path; train_launches: per
         # training step of phase 11 (a) (forward and recompute);
-        # trainer_launches: per training micro-step of phase 13's main().
+        # trainer_launches: per training micro-step of phase 13's main();
+        # api_launches: phase 14's f32 predict_on_folder run.
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
-             train_launches=k1_train, trainer_launches=k1_trainer, max_abs_err=k1_err, **k1_line),
+             train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api, max_abs_err=k1_err,
+             **k1_line),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the same path in the kernel-statistics configuration;
         # train_launches: per training step of phase 11 (c).
@@ -1789,6 +1997,7 @@ def main() -> int:
     print(json.dumps({'train': train_line}))
     print(json.dumps({'families': families_line}))
     print(json.dumps({'trainer': trainer_line}))
+    print(json.dumps({'api': api_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

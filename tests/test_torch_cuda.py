@@ -397,6 +397,59 @@ def test_f32_serving_is_f32_under_torchs_default_flags(card_default_flags, tmp_p
     torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
 
 
+def test_f32_api_predict_is_f32_under_torchs_default_flags(card_default_flags, tmp_path):
+    """The inference API in f32 on the card under torch's default flags:
+    ``W2SModel.logits`` of the flagship (through K1) on the padded batch
+    ``predict`` forms from two one-hour parquet nights (one without PPG) is
+    within 5e-4 (atol and rtol) of the CPU's, and ``predict``'s classes are
+    the CPU's off near-ties."""
+    from wav2sleep_tpu_torch import api, checkpoint
+    from wav2sleep_tpu_torch.data import parquet
+    from wav2sleep_tpu_torch.data.dataset import collate, pad_or_truncate_item
+    from wav2sleep_tpu_torch.instantiate import target_config
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+    from wav2sleep_tpu_torch.settings import COLS_TO_SAMPLES_PER_EPOCH
+
+    cfg = flagship_config()
+    folder = str(tmp_path / 'ckpt')
+    checkpoint.save_checkpoint_folder(folder, target_config(**cfg), build_wav2sleep(**cfg).state_dict())
+    rng = np.random.default_rng(21)
+    nights = tmp_path / 'nights'
+    nights.mkdir()
+    for i in range(2):
+        cols = {c: (rng.normal(size=120 * spe) + np.sin(np.arange(120 * spe) / (7 + i))).astype(np.float32)
+                for c, spe in COLS_TO_SAMPLES_PER_EPOCH.items() if c in cfg['signal_map'] and (i, c) != (1, 'PPG')}
+        parquet.write_night(str(nights / f'n{i}.parquet'), cols)
+    signals = list(cfg['signal_map'])
+    ds = api.load_dataset(str(nights), signals, max_length_hours=1)
+    x, _ = collate([pad_or_truncate_item(ds[i], 120) for i in range(2)])
+    cpu = api.W2SModel.load(folder, device='cpu')
+    gpu = api.W2SModel.load(folder, device=card_default_flags)
+    before = k1.LAUNCHES
+    got = gpu.logits(x)
+    assert k1.LAUNCHES > before and torch.backends.cudnn.allow_tf32  # K1 ran; the flags are restored
+    want = cpu.logits(x)
+    print(f'f32 API logits, card vs CPU under torch\'s default flags: max|d| {np.abs(got - want).max():.3e} on '
+          f'{torch.cuda.get_device_name(0)}')
+    assert got.shape == (2, 120, 4) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-4)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-3
+    preds, labels = api.predict(gpu, ds, device=card_default_flags, batch_size=2)
+    assert labels is None and [len(p) for p in preds] == [120, 120]
+    for i in range(2):
+        np.testing.assert_array_equal(preds[i][clear[i]], want[i].argmax(-1)[clear[i]])
+    # predict moves a handle loaded elsewhere in place: the caller's handle
+    # then follows its weights to the card, and back.
+    moved = api.W2SModel.load(folder, device='cpu')
+    api.predict(moved, ds, device=card_default_flags, batch_size=2)
+    assert moved.device.type == 'cuda' and next(moved.module.parameters()).is_cuda
+    np.testing.assert_allclose(moved.logits(x), want, atol=5e-4, rtol=5e-4)
+    api.predict(moved, ds, device='cpu', batch_size=2)
+    assert moved.device.type == 'cpu'
+    np.testing.assert_array_equal(moved.logits(x), want)
+
+
 @pytest.mark.parametrize('kind', ['q16', 'q4', 'raw'])
 def test_transport_forwards_match_the_cpu(card, kind):
     """Each new transport's device half (affine, q4's nibble unpack and

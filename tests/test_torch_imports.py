@@ -6,8 +6,9 @@ folder, the serving CLI and the training bench on the CPU), with all of
 those unavailable. No file of the port names them in an import, at module
 level or inside a function, with one exception: the parquet module
 (``data/parquet.py``) imports pyarrow inside its functions, and with pyarrow
-available (the rest still blocked) the dataset, the data module and a
-one-epoch fit run on the CPU."""
+available (the rest still blocked) the dataset, the data module, a
+one-epoch fit and the inference API (``prepare`` -> ``predict_on_folder``
+over an EDF and a CSV night) run on the CPU."""
 
 import os
 import re
@@ -113,7 +114,7 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 49, proc.stdout  # every module of the package was reached
+    assert n >= 56, proc.stdout  # every module of the package was reached
 
 
 _FIT_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''
@@ -147,6 +148,23 @@ with tempfile.TemporaryDirectory() as d:
                       progress_bar=False)
     out = trainer.fit()
     assert np.isfinite(out['val_loss']), out
+    # The inference API: an EDF and a CSV night, prepared, predicted and
+    # saved on the CPU.
+    from wav2sleep_tpu_torch import api, checkpoint
+    from wav2sleep_tpu_torch.data.edf import write_edf
+
+    os.makedirs(d + '/in')
+    write_edf(d + '/in/n.edf', {'ECG': np.sin(np.arange(7680) / 5.0), 'Thor': np.cos(np.arange(1920) / 5.0)},
+              {'ECG': 128.0, 'Thor': 32.0}, record_duration=30.0)
+    with open(d + '/in/c.csv', 'w') as f:
+        f.write('Timestamp,ECG\\n' + ''.join(f'{t / 100!r},{float(np.sin(t / 7.0))!r}\\n' for t in range(6000)))
+    checkpoint.save_checkpoint_folder(d + '/ckpt', cfg, trainer.model.state_dict())
+    preds, _ = api.predict_on_folder(d + '/in', d + '/preds', model_folder=d + '/ckpt', device='cpu',
+                                     max_length_hours=1 / 120, batch_size=2, tmp_root_folder=d + '/cache',
+                                     return_tensors=True)
+    assert [len(p) for p in preds] == [1, 1], preds
+    with open(d + f'/preds/{d[1:]}/in/n.preds.csv'.replace('//', '/')) as f:
+        assert f.read().startswith('Timestamp,Pred\\n2000-01-01 22:00:30.029296875,')
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('FIT', out['val_loss'], 'LEAKED', leaked)
 '''
@@ -154,7 +172,7 @@ print('FIT', out['val_loss'], 'LEAKED', leaked)
 
 def test_parquet_path_and_a_fit_with_pyarrow_only():
     """pyarrow available, the JAX package, JAX, pandas and yaml blocked: the
-    dataset, the data module and a one-epoch CPU fit run."""
+    dataset, the data module, a one-epoch CPU fit and the inference API run."""
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''))
     proc = subprocess.run(
         [sys.executable, '-c', _FIT_PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
@@ -185,7 +203,8 @@ def _port_files():
                  'train/step.py', 'train/masker.py', 'train/metrics.py', 'train/scheduler.py', 'train_bench.py',
                  'profile_train.py', 'data/parquet.py', 'data/dataset.py', 'train/datamodule.py', 'train/loop.py',
                  'train/checkpointing.py', 'train/tuning.py', 'train/supervise.py', 'train/__main__.py', 'config.py',
-                 'stats.py', 'log.py', 'native/src/mulaw8.cpp'):
+                 'stats.py', 'log.py', 'native/src/mulaw8.cpp', 'api.py', 'hub.py', 'data/frame.py',
+                 'cli/__init__.py', 'cli/predict.py', 'cli/main.py', 'cli/data_utils.py', 'cli/model_utils.py'):
         assert PORT / name in files, name
     return files
 

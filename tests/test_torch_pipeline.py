@@ -355,10 +355,12 @@ def test_f32_pipeline_matches_jax(model_pair, tmp_path, normalize):
 
 
 def test_entry_points_run_on_the_card_unless_told(model_pair, monkeypatch, tmp_path):
-    """With no device given, the pipelines, flagship_model, load_model and
-    the serving CLI take the card, and raise where there is none rather
+    """With no device given (or the inference API's 'auto'), the pipelines,
+    flagship_model, load_model, the serving CLI, W2SModel, predict_on_folder
+    and the predict CLI take the card, and raise where there is none rather
     than run on the CPU."""
     from wav2sleep_tpu_torch import api, checkpoint, serve
+    from wav2sleep_tpu_torch.cli import predict as predict_cli
     from wav2sleep_tpu_torch.instantiate import target_config
 
     _, _, tmodel = model_pair
@@ -374,10 +376,17 @@ def test_entry_points_run_on_the_card_unless_told(model_pair, monkeypatch, tmp_p
         lambda: api.load_model(ckpt),
         lambda: serve.main(['--input-folder', str(tmp_path), '--output-folder', str(tmp_path / 'out'),
                             '--model-folder', ckpt]),
+        *(lambda dev=dev: api.W2SModel(tmodel, 'wav2sleep', device=dev) for dev in (None, 'auto')),
+        *(lambda dev=dev: api.W2SModel.wrap(tmodel, dev) for dev in (None, 'auto')),
+        lambda: api.predict_on_folder(str(tmp_path), str(tmp_path / 'out'), model_folder=ckpt),
+        lambda: api.predict_on_folder(str(tmp_path), str(tmp_path / 'out'), model=tmodel, device=None),
+        lambda: predict_cli.main(['--input-folder', str(tmp_path), '--output-folder', str(tmp_path / 'out'),
+                                  '--model-folder', ckpt]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert not (tmp_path / 'out').exists()
+    assert api.W2SModel.wrap(tmodel, 'cpu').device.type == 'cpu'
     for cls in pipelines:
         assert cls(tmodel, list(SIGNALS), 2, HOURS, device='cpu').device.type == 'cpu'
     assert next(api.load_model(ckpt, device='cpu').parameters()).device.type == 'cpu'

@@ -5,8 +5,11 @@ serving extractors use: a fixed-layout header parse (256-byte file header,
 256 bytes per signal header) with the same salvage of malformed headers, a
 memory-mapped int16 record matrix (``EdfFile``), channel-alias matching with
 the BROKEN-unit skip, and the per-channel normalization affine (voltages to
-mV, arbitrary units onto [-1, 1]). ``get_edf_start`` reads the start
-time; ``write_edf`` writes test and synthetic nights.
+mV, arbitrary units onto [-1, 1]). ``load_edf_arrays`` reads the
+channels of a night with its QC warnings (the inference API's EDF path),
+``sample_seconds`` gives their sample times as the JAX package's datetime
+index holds them, ``get_edf_start`` reads the start time and ``write_edf``
+writes test and synthetic nights.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..settings import ABD, ECG, EOG_L, EOG_R, PPG, THX
+from .frame import seconds_to_ns
 
 _logger = logging.getLogger(__name__)
 
@@ -66,17 +70,14 @@ def channel_norm_affine(
     unit: str,
     physical_min: float,
     physical_max: float,
-    convert_units: bool = True,
-    normalize_arbitrary: bool = True,
 ) -> tuple[str, float, float]:
     """(method, scale, offset) such that ``normalized = raw * scale + offset``.
 
     Voltage signals scale to mV; arbitrary-unit signals map their physical
     range onto [-1, 1] (reference edf.py:254-281)."""
     if sig_name in VOLTAGE_SIGNALS:
-        scale = get_unit_scaling(sig_name, unit) if convert_units else 1.0
-        return 'voltage_to_mV', scale, 0.0
-    if sig_name in ARBITRARY_UNIT_SIGNALS and normalize_arbitrary:
+        return 'voltage_to_mV', get_unit_scaling(sig_name, unit), 0.0
+    if sig_name in ARBITRARY_UNIT_SIGNALS:
         physical_range = abs(physical_max - physical_min)
         if physical_range > 0:
             physical_center = (physical_max + physical_min) / 2
@@ -406,6 +407,108 @@ def units_map_first(header) -> dict[str, str]:
     for c in header.channels:
         out.setdefault(c.label, c.unit)
     return out
+
+
+def _warn_signal_issues(
+    filepath: str,
+    sig_name: str,
+    sig: np.ndarray,
+    raw_std: float,
+    raw_min: float,
+    raw_max: float,
+    physical_min: float,
+    physical_max: float,
+    unit: str,
+) -> None:
+    """QC warnings for likely data problems (reference edf.py:131-179)."""
+    basename = os.path.basename(filepath)
+    nan_count = int(np.isnan(sig).sum())
+    if nan_count > 0:
+        nan_pct = 100 * nan_count / len(sig)
+        _logger.warning(f'{basename}: {sig_name} has {nan_count} NaN values ({nan_pct:.1f}%)')
+    if raw_std == 0 or np.isnan(raw_std):
+        _logger.warning(f'{basename}: {sig_name} is constant (std=0) - possible dead channel')
+    if physical_max - physical_min == 0:
+        _logger.warning(
+            f'{basename}: {sig_name} has zero physical range '
+            f'(min={physical_min}, max={physical_max}) - cannot normalize'
+        )
+    if sig_name in VOLTAGE_SIGNALS:
+        scaled_max = max(abs(raw_min), abs(raw_max)) * get_unit_scaling(sig_name, unit)
+        if scaled_max > 200:  # ECG/EOG > 200 mV => header unit is wrong.
+            _logger.warning(
+                f'{basename}: {sig_name} has extreme amplitude ({scaled_max:.1f} mV after scaling) '
+                f"- likely incorrect unit '{unit}' in header"
+            )
+
+
+def load_edf_arrays(
+    filepath: str, columns: list[str]
+) -> tuple[dict[str, tuple[np.ndarray, float]], dict[str, dict], datetime.datetime]:
+    """The counterpart of the JAX package's ``load_edf_arrays`` with its
+    defaults as ``prepare`` calls it: ``{col: (values, sampling_freq)}`` of
+    the canonical ``columns`` found, in float64 (voltages in mV, arbitrary
+    units on [-1, 1], see ``channel_norm_affine``; a column not found is
+    left out), the per-signal metadata with the raw statistics and the
+    affine applied, and the start."""
+    metadata: dict[str, dict] = {}
+    arrays: dict[str, tuple[np.ndarray, float]] = {}
+    with EdfFile(filepath) as f:
+        labels = f.labels()
+        units_map = units_map_first(f.header)
+        for sig_name in columns:
+            actual = get_column_match(sig_name, labels, units_map=units_map, raise_error=False)
+            if actual is None:
+                continue
+            ch = f.channel(actual)
+            sig = f.read_physical(actual)
+            sampling_freq = f.sampling_freq(actual)
+            unit = ch.unit
+            physical_min, physical_max = ch.physical_min, ch.physical_max
+
+            raw_mean = float(np.nanmean(sig)) if len(sig) else float('nan')
+            raw_std = float(np.nanstd(sig)) if len(sig) else float('nan')
+            raw_min = float(np.nanmin(sig)) if len(sig) else float('nan')
+            raw_max = float(np.nanmax(sig)) if len(sig) else float('nan')
+            _warn_signal_issues(filepath, sig_name, sig, raw_std, raw_min, raw_max, physical_min, physical_max, unit)
+
+            norm_method, norm_scale, norm_offset = channel_norm_affine(sig_name, unit, physical_min, physical_max)
+            if norm_scale != 1.0 or norm_offset != 0.0:
+                sig = sig * norm_scale + norm_offset
+
+            metadata[sig_name] = {
+                'unit': unit,
+                'physical_min': physical_min,
+                'physical_max': physical_max,
+                'physical_range_inverted': physical_max < physical_min,
+                'raw_mean': raw_mean,
+                'raw_std': raw_std,
+                'raw_min': raw_min,
+                'raw_max': raw_max,
+                'norm_method': norm_method,
+                'norm_scale': norm_scale,
+                'norm_offset': norm_offset,
+                'sampling_freq': sampling_freq,
+            }
+            arrays[sig_name] = (sig, sampling_freq)
+        start = f.header.start
+    if not arrays:
+        _logger.warning(f'No signals found in {filepath} for {columns}')
+    return arrays, metadata, start
+
+
+def sample_seconds(n: int, sampling_freq: float, convert_time: bool = False) -> np.ndarray:
+    """The times in seconds of a channel's ``n`` samples, ``arange(n) / fs``
+    as the JAX package's ``load_edf_data`` indexes them. With
+    ``convert_time`` they go, as there, through a datetime index and back
+    (``start + pd.to_timedelta(t, unit='s')``, then the offsets from the
+    start over 1e9): rounded to whole nanoseconds as pandas rounds
+    (``frame.seconds_to_ns``), which moves the times of rates such as 77 Hz
+    that are not whole nanoseconds."""
+    t = np.arange(n) / sampling_freq
+    if convert_time:
+        t = seconds_to_ns(t).astype(np.float64) / 1e9
+    return t
 
 
 def get_edf_start(filepath: str) -> datetime.datetime:

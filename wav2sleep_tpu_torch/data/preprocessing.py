@@ -7,15 +7,25 @@ grid points outside the recorded range become 0.0. ``NightDecoder`` uses
 ``resample_uniform`` when the native host library is absent;
 ``interp_to_grid`` (the core of ``data/utils.py::interp_to_grid``) is the
 general (timestamps, values) form it is tested against.
+
+The inference API's preprocessing (``process_waveform_arrays``,
+``process_waveform_frame``) gives a night as the JAX package's
+``process_waveform_dataframe`` frames it: every signal on its grid, the
+grids' union as the index, NaN where a signal has no grid point, and a
+datetime index (start + grid) where the input had one.
 """
 
 from __future__ import annotations
 
+import datetime
+import functools
 from collections import OrderedDict
 
 import numpy as np
 
-from ..settings import COLS_TO_SAMPLES_PER_EPOCH, EPOCH_SECONDS
+from ..settings import COLS_TO_SAMPLES_PER_EPOCH, EPOCH_SECONDS, TRAINING_LENGTH_HOURS
+from .edf import sample_seconds
+from .frame import Frame, datetime_to_ns, seconds_to_ns
 
 
 def signal_target_grid(col: str, max_length_hours: float) -> np.ndarray:
@@ -107,3 +117,73 @@ def _take_scratch(n: int) -> np.ndarray:
         buf = np.empty(n, dtype=np.float32)
         _TAKE_SCRATCH[n] = buf
     return buf
+
+
+def resample_to_frame(
+    series: dict[str, tuple[np.ndarray, np.ndarray]], columns: list[str], max_length_hours: float
+) -> Frame:
+    """Each of ``columns`` found in ``series`` (``{col: (t_seconds,
+    values)}``) interpolated onto its grid (interior only, 0.0 outside), as
+    float32 columns over the union of their grids, NaN where a signal's grid
+    has no point (``pd.concat(axis=1)`` of the resampled signals). Raises
+    ``ValueError`` when none is found."""
+    resampled, grids = {}, {}
+    for col in columns:
+        if col not in series:
+            continue
+        t, values = series[col]
+        grids[col] = signal_target_grid(col, max_length_hours)
+        resampled[col] = interp_to_grid(t, values, grids[col], interior_only=True, fill_value=0.0).astype(np.float32)
+    if not resampled:
+        raise ValueError(f'None of {columns} present in signals {list(series)}')
+    index = functools.reduce(np.union1d, grids.values())
+    out = Frame(index)
+    for col, values in resampled.items():
+        full = np.full(len(index), np.nan, np.float32)
+        full[np.searchsorted(index, grids[col])] = values
+        out.columns[col] = full
+    return out
+
+
+def process_waveform_arrays(
+    arrays: dict[str, tuple[np.ndarray, float]],
+    columns: list[str],
+    max_length_hours: float = TRAINING_LENGTH_HOURS,
+    start: datetime.datetime | None = None,
+) -> Frame:
+    """``load_edf_arrays``' ``{col: (values, fs)}`` resampled onto the
+    model grids (``resample_to_frame``), each signal's samples at
+    ``arange(n) / fs`` seconds: the JAX package's ``process_waveform_arrays``.
+    With ``start`` it is the inference API's EDF path instead (the JAX
+    package's ``load_edf_data(convert_time=True)`` then
+    ``process_waveform_dataframe``): the sample times as its datetime index
+    rounds them (``edf.sample_seconds``), and the index ``start`` + grid."""
+    series = {col: (sample_seconds(len(sig), fs, convert_time=start is not None), sig)
+              for col, (sig, fs) in arrays.items()}
+    out = resample_to_frame(series, columns, max_length_hours)
+    if start is not None:
+        out = Frame(datetime_to_ns(start) + seconds_to_ns(out.index), out.columns, datetime=True)
+    return out
+
+
+def process_waveform_frame(
+    frame: Frame, columns: list[str], max_length_hours: float = TRAINING_LENGTH_HOURS
+) -> Frame:
+    """The JAX package's ``process_waveform_dataframe`` on a ``Frame``: each
+    of ``columns`` without its NaNs, at the index's seconds from its first
+    value (datetime) or as they are (seconds), resampled onto the model
+    grids (``resample_to_frame``); a datetime index comes back as the first
+    stamp + grid. Raises ``ValueError`` for an empty frame."""
+    if len(frame.index) == 0:
+        raise ValueError('empty frame')
+    t = frame.seconds()
+    series = {}
+    for col in columns:
+        if col in frame.columns:
+            values = np.asarray(frame.columns[col], dtype=np.float64)
+            keep = ~np.isnan(values)
+            series[col] = (t[keep], values[keep])
+    out = resample_to_frame(series, columns, max_length_hours)
+    if frame.datetime:
+        out = Frame(frame.index[0] + seconds_to_ns(out.index), out.columns, datetime=True)
+    return out

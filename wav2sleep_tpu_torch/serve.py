@@ -30,9 +30,10 @@ import time
 
 import numpy as np
 
-from .api import PRECISIONS, check_local, load_model
+from .api import PRECISIONS, check_local, load_model, write_predictions_csv
 from .checkpoint import read_config
 from .data.edf import get_edf_start
+from .data.frame import datetime_to_ns, format_stamps, seconds_to_ns
 from .instantiate import model_family, wav2sleep_arguments
 from .pipeline import (
     StreamingPipeline,
@@ -87,17 +88,12 @@ def write_predictions(out_fp: str, hyp: np.ndarray, start: datetime.datetime | N
     """``<name>.preds.csv`` as ``pandas.DataFrame.to_csv`` writes it: a
     ``Timestamp`` index of epoch ends (``start`` + 30 s x (k + 1), or the
     seconds as floats when ``start`` is None) and the ``Pred`` column."""
-    ends = [EPOCH_SECONDS * (k + 1) for k in range(len(hyp))]
+    ends = EPOCH_SECONDS * np.arange(1, len(hyp) + 1)
     if start is None:
-        stamps = [repr(t) for t in ends]
+        stamps = [repr(t) for t in ends.tolist()]
     else:
-        times = [start + datetime.timedelta(seconds=t) for t in ends]
-        # pandas writes dates alone when every stamp is at midnight.
-        fmt = '%Y-%m-%d' if all(t.time() == datetime.time() for t in times) else '%Y-%m-%d %H:%M:%S'
-        stamps = [t.strftime(fmt) for t in times]
-    with open(out_fp, 'w', newline='') as f:
-        f.write('Timestamp,Pred\n')
-        f.writelines(f'{s},{int(p)}\n' for s, p in zip(stamps, hyp))
+        stamps = format_stamps(datetime_to_ns(start) + seconds_to_ns(ends))
+    write_predictions_csv(out_fp, stamps, np.asarray(hyp))
 
 
 def main(argv=None) -> None:

@@ -14,6 +14,10 @@ EOG_L = 'EOG-L'
 EOG_R = 'EOG-R'
 LABEL = 'Stage'
 
+# Columns of the prediction CSVs.
+TIMESTAMP = 'Timestamp'
+PRED = 'Pred'
+
 # Recording length in hours during training. One night = 1,200 sleep epochs of 30 s.
 TRAINING_LENGTH_HOURS = 10
 EPOCH_SECONDS = 30.0

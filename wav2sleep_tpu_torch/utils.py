@@ -38,10 +38,11 @@ def full_f32():
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
-    """``device``, or the card (``cuda``) when it is None. Raises when the
-    device asked for, or defaulted to, is a card and there is none: an entry
-    point never falls back to the CPU unless the caller asks for it."""
-    dev = torch.device('cuda' if device is None else device)
+    """``device``, or the card (``cuda``) when it is None or ``'auto'`` (the
+    JAX package's API default). Raises when the device asked for, or
+    defaulted to, is a card and there is none: an entry point never falls
+    back to the CPU unless the caller asks for it."""
+    dev = torch.device('cuda' if device is None or device == 'auto' else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
