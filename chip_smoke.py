@@ -157,13 +157,34 @@ Phases (any failure raises, so the script exits non-zero):
    over phase 13's labeled val nights and its exported model: the kappa
    and accuracy lines printed, CSVs with a Stage column. Prints an ``api``
    JSON line.
+15. Ingest: the corpus path from raw nights to a trained flagship. (a) A
+   raw corpus of ten-hour nights at the NSRR rates (``data.synth.RATES``)
+   written with the port's ``synth``: MESA nights in the NSRR layout
+   (``polysomnography/edfs``, ``annotations-events-nsrr``), session IDs from
+   the port's ``mesa`` split lists (4 train, 2 val, 2 test), one train night
+   with a flat PPG and one with sleep/wake-only labels; two WSC nights (a
+   ``.stg.txt`` with its ``.log.txt``, an ``.allscore.txt``); one CHAT night
+   whose ECG header has a physical maximum of 0.0. (b) The command lines
+   as a user runs them, each in its own process: ``preprocessing.fix_edfs``
+   on CHAT, ``preprocessing.ingest`` on MESA at ``--max-parallel 1`` (timed
+   only) and on each dataset at ``--max-parallel 4``, then
+   ``preprocessing.create_splits`` on each: every night present, the
+   sleep/wake-only night quarantined as ``.issues``, the flat PPG dropped,
+   the repaired CHAT ECG skipped, every stage in {-1, 0..3} after the
+   4-class map, every ``signal_metadata`` read back with the file's
+   signals. (c) The trainer's ``main`` on the split MESA corpus: the
+   flagship at full width in f32, one epoch at batch 4, K1 launched 160
+   times a training micro-step, every loss finite. (d) The predict CLI's
+   ``main`` on the test split with the exported model: kappa and accuracy.
+   Prints an ``ingest`` JSON line.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train``, ``families``, ``trainer`` and ``api`` lines come before the ``kernels``
-line; the line before the last is a JSON object describing the kernels (K1's
-and K2's entries also carry ``train_launches``, per training step, K1's
-``trainer_launches``, per training micro-step of phase 13, and
+before it runs. The ``train``, ``families``, ``trainer``, ``api`` and
+``ingest`` lines come before the ``kernels`` line; the line before the last
+is a JSON object describing the kernels (K1's and K2's entries also carry
+``train_launches``, per training step, K1's ``trainer_launches`` and
+``ingest_launches``, per training micro-step of phases 13 and 15, and
 ``api_launches``, phase 14's f32 ``predict_on_folder`` run, and K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1912,6 +1933,234 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
     return line, k1_api
 
 
+# Phase 15: the corpus path. MESA sessions from the port's split lists
+# (train, val, test), each night written with synth at the NSRR rates; the
+# fifth train session gets sleep/wake-only labels and the first train night
+# a flat PPG.
+INGEST_MESA = {'train': 4, 'val': 2, 'test': 2}
+INGEST_SEED = 23
+INGEST_BATCH = 4
+INGEST_PARALLEL = 4
+NSRR_CODES = (0, 2, 3, 5)  # synth's Wake, Light, Deep, REM as NSRR stage codes
+WSC_TEXT = ('STAGE - W', 'STAGE - N2', 'STAGE - N3', 'STAGE - R')
+INGEST_OVERRIDES = ['datasets.train=[mesa]', 'datasets.val=[mesa]', 'datasets.test=[mesa]',
+                    f'batch_size={INGEST_BATCH}', f'target_batch_size={INGEST_BATCH}',
+                    f'training.val_batch_size={INGEST_BATCH}', 'epochs=1', f'max_length_hours={TRAIN_HOURS:g}']
+
+
+def nsrr_xml(fp: str, stages: np.ndarray, codes=NSRR_CODES) -> None:
+    """An NSRR annotations XML with one 30 s stage event per epoch."""
+    events = ''.join(f'<ScoredEvent>\n<EventType>Stages.Stages</EventType>\n<EventConcept>Stage|{codes[s]}'
+                     f'</EventConcept>\n<Start>{30 * i}</Start>\n<Duration>30</Duration>\n</ScoredEvent>\n'
+                     for i, s in enumerate(stages))
+    os.makedirs(os.path.dirname(fp), exist_ok=True)
+    with open(fp, 'w') as f:
+        f.write('<PSGAnnotation>\n<ScoredEvents>\n<ScoredEvent>\n<EventType></EventType>\n<EventConcept>Recording '
+                f'Start Time</EventConcept>\n<Start>0</Start>\n</ScoredEvent>\n{events}</ScoredEvents>\n'
+                '</PSGAnnotation>\n')
+
+
+def write_raw_corpus(raw: str, synth) -> dict:
+    """Phase 15's raw nights (see the module docstring); returns the session
+    IDs by role and the seconds ``write_nights`` took a night."""
+    from wav2sleep_tpu_torch.data.edf import write_edf
+    from wav2sleep_tpu_torch.data.nsrr import get_split
+
+    ids = {split: get_split('mesa', split)[:n] for split, n in INGEST_MESA.items()}
+    ids['sleep_wake'] = get_split('mesa', 'train')[INGEST_MESA['train']]
+    mesa = [*ids['train'], *ids['val'], *ids['test'], ids['sleep_wake']]
+    ids['flat_ppg'] = ids['train'][0]
+    psg = os.path.join(raw, 'mesa', 'polysomnography')
+    os.makedirs(os.path.join(psg, 'edfs'))
+    t0 = time.time()
+    fps, labels = synth.write_nights(os.path.join(psg, 'edfs'), len(mesa), TRAIN_HOURS, seed=INGEST_SEED)
+    write_s = (time.time() - t0) / len(mesa)
+    for sid, fp, stages in zip(mesa, fps, labels):
+        os.rename(fp, os.path.join(psg, 'edfs', f'{sid}.edf'))
+        if sid == ids['sleep_wake']:
+            stages = np.where(stages == 0, 0, 1)  # Wake and N2 only
+        nsrr_xml(os.path.join(psg, 'annotations-events-nsrr', f'{sid}-nsrr.xml'), stages)
+    rng = np.random.default_rng(INGEST_SEED + 1)
+    signals, _ = synth.synth_night(rng, TRAIN_HOURS)
+    signals['Pleth'][:] = 0.0  # a disconnected pleth sensor
+    synth.write_night_edf(os.path.join(psg, 'edfs', f'{ids["flat_ppg"]}.edf'), signals)
+
+    wsc = os.path.join(raw, 'wsc')
+    os.makedirs(wsc)
+    ids['wsc_stg'], ids['wsc_allscore'] = get_split('wsc', 'train')[0], get_split('wsc', 'val')[0]
+    start = datetime.datetime(2002, 3, 1, 22, 0, 0)  # write_night_edf's start
+    for sid in (ids['wsc_stg'], ids['wsc_allscore']):
+        signals, stages = synth.synth_night(rng, TRAIN_HOURS)
+        synth.write_night_edf(os.path.join(wsc, f'{sid}.edf'), signals)
+        if sid == ids['wsc_stg']:
+            with open(os.path.join(wsc, f'{sid}.stg.txt'), 'w') as f:
+                f.write('Epoch\tUser-Defined Stage\n' + ''.join(f'{i}\t{NSRR_CODES[s]}\n'
+                                                                for i, s in enumerate(stages, start=1)))
+            with open(os.path.join(wsc, f'{sid}.log.txt'), 'w') as f:
+                f.write(f'{start:%H:%M:%S} 1\tRecording Started\n')
+        else:
+            changes = [0] + [i for i in range(1, len(stages)) if stages[i] != stages[i - 1]] + [len(stages) - 1]
+            rows = [f'{start:%H:%M:%S}.00\tSTART RECORDING'] + [
+                f'{start + datetime.timedelta(seconds=30 * i):%H:%M:%S}.00\t{WSC_TEXT[stages[i]]}' for i in changes]
+            with open(os.path.join(wsc, f'{sid}.allscore.txt'), 'w') as f:
+                f.write('\n'.join(rows) + '\n')
+
+    ids['chat'] = get_split('chat', 'train')[0]
+    chat = os.path.join(raw, 'chat', 'polysomnography')
+    os.makedirs(os.path.join(chat, 'edfs', 'baseline'))
+    signals, stages = synth.synth_night(rng, TRAIN_HOURS)
+    write_edf(os.path.join(chat, 'edfs', 'baseline', f'{ids["chat"]}.edf'), signals, synth.RATES,
+              units={'ECG': 'uV'}, record_duration=30.0, start=start,
+              physical_ranges={'ECG': (-6000, 0.0), 'Pleth': (-1, 1), 'ABDO RES': (-1, 1), 'THOR RES': (-1, 1)})
+    nsrr_xml(os.path.join(chat, 'annotations-events-nsrr', 'baseline', f'{ids["chat"]}-nsrr.xml'), stages)
+    ids['write_nights_s_per_night'] = write_s
+    return ids
+
+
+def run_cli(module: str, *argv: str) -> tuple[str, float]:
+    """``python -m <module> argv`` in its own process from the repository
+    root; its standard output and wall seconds. Raises on a non-zero exit."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, '-m', module, *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise AssertionError(f'ingest: {module} {" ".join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}')
+    return proc.stdout, time.time() - t0
+
+
+def check_ingested(out: str, ids: dict) -> dict:
+    """The ingested corpus against what phase 15 wrote: every night there,
+    the quarantine and the drops done, stages in {-1, 0..3} after the
+    4-class map, ``signal_metadata`` read back. Returns the counts."""
+    from wav2sleep_tpu_torch.data.dataset import ParquetDataset
+    from wav2sleep_tpu_torch.data.parquet import get_parquet_cols
+    from wav2sleep_tpu_torch.data.preprocessing import TARGET_LABEL_INDEX
+    from wav2sleep_tpu_torch.ingest import read_signal_metadata
+
+    mesa = [*ids['train'], *ids['val'], *ids['test']]
+    want = {**{f'mesa/ingest/{sid}.parquet': SIGNALS for sid in mesa},
+            f'mesa/ingest/{ids["sleep_wake"]}.issues.parquet': SIGNALS,
+            f'mesa/ingest/{ids["flat_ppg"]}.parquet': ('ECG', 'ABD', 'THX'),
+            f'wsc/ingest/{ids["wsc_stg"]}.parquet': SIGNALS, f'wsc/ingest/{ids["wsc_allscore"]}.parquet': SIGNALS,
+            f'chat/ingest/{ids["chat"]}.parquet': ('PPG', 'ABD', 'THX')}
+    got = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs
+                 if f.endswith('.parquet') and os.sep + 'ingest' in d)
+    if got != sorted(want):
+        raise AssertionError(f'ingest: ingested {got}, expected {sorted(want)}')
+    for name, signals in want.items():
+        fp = os.path.join(out, name)
+        cols = get_parquet_cols(fp)
+        meta = read_signal_metadata(fp)
+        if cols != [*signals, 'Stage'] or sorted(meta) != sorted(signals):
+            raise AssertionError(f'ingest: {name} has columns {cols} and signal_metadata {sorted(meta)}, expected '
+                                 f'{[*signals, "Stage"]}')
+        _, y = ParquetDataset([fp], list(signals), num_classes=4)[0]
+        if y.shape != TARGET_LABEL_INDEX.shape or not set(np.unique(y).tolist()) <= {-1, 0, 1, 2, 3}:
+            raise AssertionError(f'ingest: {name} labels {y.shape} {np.unique(y)} outside -1, 0..3')
+    return dict(nights_ingested=len(want), quarantined=sum('.issues' in n for n in want))
+
+
+def phase_ingest(torch, k1, k3, card, work):
+    """Phase 15: raw NSRR, WSC and CHAT nights through ``fix_edfs``,
+    ``ingest`` and ``create_splits`` to a split corpus, the trainer's
+    ``main`` for one epoch of the full-width flagship on it, and the
+    predict CLI on its test split. Returns the ``ingest`` line and K1's
+    launches per training micro-step."""
+    import io
+
+    from wav2sleep_tpu_torch.cli import predict as predict_cli
+    from wav2sleep_tpu_torch.data import synth
+    from wav2sleep_tpu_torch.train import __main__ as train_cli
+    from wav2sleep_tpu_torch.train import loop
+
+    t_phase = time.time()
+    raw, out, run = (os.path.join(work, name) for name in ('ingest_raw', 'ingest_out', 'ingest_run'))
+    ids = write_raw_corpus(raw, synth)
+    n_written = len(os.listdir(os.path.join(raw, 'mesa', 'polysomnography', 'edfs'))) + 3
+    log(f'ingest: wrote {n_written} raw nights of {TRAIN_HOURS:g} h in 3 datasets '
+        f'({ids["write_nights_s_per_night"]:.2f} s a night in write_nights) (set-up)')
+
+    printed, _ = run_cli('wav2sleep_tpu_torch.preprocessing.fix_edfs', '--folder', os.path.join(raw, 'chat'))
+    if printed != 'Found 1 EDF files.\nFixed 1 EDF files.\n':
+        raise AssertionError(f'ingest: fix_edfs printed {printed!r}')
+    n_mesa = sum(INGEST_MESA.values()) + 1
+    _, serial_s = run_cli('wav2sleep_tpu_torch.preprocessing.ingest', '--folder', os.path.join(raw, 'mesa'),
+                          '--output-folder', os.path.join(work, 'ingest_serial'), '--max-parallel', '1')
+    parallel_s = {}
+    for ds in ('mesa', 'wsc', 'chat'):
+        _, parallel_s[ds] = run_cli('wav2sleep_tpu_torch.preprocessing.ingest', '--folder', os.path.join(raw, ds),
+                                    '--output-folder', out, '--max-parallel', str(INGEST_PARALLEL))
+    counts_line = check_ingested(out, ids)
+    for ds in ('mesa', 'wsc', 'chat'):
+        run_cli('wav2sleep_tpu_torch.preprocessing.create_splits', '--folder', os.path.join(out, ds))
+    split = {s: sorted(os.listdir(os.path.join(out, 'mesa', s))) for s in INGEST_MESA}
+    want = {s: sorted(f'{sid}.parquet' for sid in ids[s]) for s in INGEST_MESA}
+    want['train'] = sorted(want['train'] + [f'{ids["sleep_wake"]}.issues.parquet'])
+    if split != want:
+        raise AssertionError(f'ingest: create_splits gave {split}, expected {want}')
+    mib = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs
+              if not os.path.islink(os.path.join(d, f))) / 2**20
+    log(f'ingest: fix_edfs, then ingest of {n_mesa} MESA nights in {serial_s:.1f} s at --max-parallel 1 and '
+        f'{parallel_s["mesa"]:.1f} s at {INGEST_PARALLEL}, WSC {parallel_s["wsc"]:.1f} s, CHAT '
+        f'{parallel_s["chat"]:.1f} s (each a process of its own); {counts_line["nights_ingested"]} nights, '
+        f'{counts_line["quarantined"]} quarantined, {mib:.1f} MiB; splits {[len(v) for v in split.values()]}')
+
+    micro = []
+    orig_epoch = loop.Trainer.train_epoch
+
+    def counted_epoch(self, epoch):
+        self.ensure_state()
+        step0, before = self.state.step, k1.LAUNCHES
+        result = orig_epoch(self, epoch)
+        micro.append((self.state.step - step0, k1.LAUNCHES - before))
+        return result
+
+    loop.Trainer.train_epoch = counted_epoch
+    try:
+        zero_counts(k1, k3)
+        t0 = time.time()
+        final = train_cli.main([*INGEST_OVERRIDES, f'data_location={out}', f'run_dir={run}'])
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+    finally:
+        loop.Trainer.train_epoch = orig_epoch
+    rows = _jsonl(os.path.join(run, 'metrics.jsonl'))
+    train_rows = [r for r in rows if 'train_loss' in r]
+    losses = [v for r in rows for k, v in r.items() if 'loss' in k] + [v for k, v in final.items() if 'loss' in k]
+    if micro != [(1, 160)] or not losses or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f'ingest: one epoch of {INGEST_MESA["train"]} train nights at batch {INGEST_BATCH}: '
+                             f'(micro-steps, K1 launches) {micro}, expected [(1, 160)]; losses {losses}')
+    log(f'ingest: trainer main() on the split MESA corpus, 1 epoch at batch {INGEST_BATCH}, in {fit_s:.1f} s; K1 '
+        f'{micro[0][1]} launches a micro-step; {final}')
+
+    printed = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        predict_cli.main(['--input-folder', os.path.join(out, 'mesa', 'test'), '--output-folder',
+                          os.path.join(work, 'ingest_preds'), '--model-folder', os.path.join(run, 'model'),
+                          '--no-preprocess'])
+    predict_s = time.time() - t0
+    text = printed.getvalue()
+    kappa = re.search(r"^Cohen's kappa: (-?[0-9.]+|nan)$", text, re.M)
+    acc = re.search(r'^Accuracy: ([0-9.]+|nan)$', text, re.M)
+    if not (kappa and acc) or len(os.listdir(os.path.join(work, 'ingest_preds'))) != INGEST_MESA['test']:
+        raise AssertionError(f'ingest: the predict CLI printed {text!r}')
+    log(f'ingest: predict CLI on the {INGEST_MESA["test"]} test nights in {predict_s:.1f} s: {text.strip()!r}')
+    line = dict(
+        card=card, hours=TRAIN_HOURS, nights_written=n_written, **counts_line, corpus_mib=mib,
+        write_nights_s_per_night=ids['write_nights_s_per_night'],
+        ingest_s_per_night={'1': serial_s / n_mesa, str(INGEST_PARALLEL): parallel_s['mesa'] / n_mesa},
+        fit_s=fit_s, micro_steps_per_s=[r['train_steps_per_sec'] for r in train_rows],
+        k1_launches_per_micro_step=micro[0][1], kappa=float(kappa.group(1)), accuracy=float(acc.group(1)),
+        predict_s=predict_s, phase_s=time.time() - t_phase,
+    )
+    log(f'ingest: phase 15 took {line["phase_s"]:.1f} s')
+    return line, micro[0][1]
+
+
 def main() -> int:
     import torch
 
@@ -1964,6 +2213,8 @@ def main() -> int:
         trainer_line, k1_trainer = phase_trainer(torch, k1, k3, card, work, tf32_defaults)
         torch.cuda.empty_cache()
         api_line, k1_api = phase_api(torch, k1, k3, layers, card, fps, out_z, work)
+        torch.cuda.empty_cache()
+        ingest_line, k1_ingest = phase_ingest(torch, k1, k3, card, work)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -1971,11 +2222,12 @@ def main() -> int:
         # launches: the f32 causal serving path; train_launches: per
         # training step of phase 11 (a) (forward and recompute);
         # trainer_launches: per training micro-step of phase 13's main();
-        # api_launches: phase 14's f32 predict_on_folder run.
+        # api_launches: phase 14's f32 predict_on_folder run;
+        # ingest_launches: per training micro-step of phase 15's main().
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
-             train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api, max_abs_err=k1_err,
-             **k1_line),
+             train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api,
+             ingest_launches=k1_ingest, max_abs_err=k1_err, **k1_line),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the same path in the kernel-statistics configuration;
         # train_launches: per training step of phase 11 (c).
@@ -1998,6 +2250,7 @@ def main() -> int:
     print(json.dumps({'families': families_line}))
     print(json.dumps({'trainer': trainer_line}))
     print(json.dumps({'api': api_line}))
+    print(json.dumps({'ingest': ingest_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

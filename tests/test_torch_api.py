@@ -41,6 +41,7 @@ from wav2sleep_tpu_torch.instantiate import build_model
 
 from .test_api import MODEL_CFG
 from .test_torch_model import jax_random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 TOL = 5e-4
 HOURS = 1

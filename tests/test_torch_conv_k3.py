@@ -15,6 +15,8 @@ from wav2sleep_tpu.ops import block_domain as bd
 from wav2sleep_tpu.ops import pallas_conv
 from wav2sleep_tpu_torch.ops import conv_k3 as k1
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 pallas_conv._INTERPRET = True  # CPU: run the Pallas kernel interpreted
 
 SHAPES = [

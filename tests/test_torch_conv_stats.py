@@ -24,6 +24,7 @@ from wav2sleep_tpu_torch.ops import block_domain as tbd
 from wav2sleep_tpu_torch.ops import conv_k3 as k1
 
 from .test_torch_conv_k3 import SHAPES, TOL, _inputs
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 EPS = 1e-2  # the encoders' instance-norm eps
 

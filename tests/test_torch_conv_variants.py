@@ -32,6 +32,8 @@ from wav2sleep_tpu_torch import card_clock, profile_variants
 from wav2sleep_tpu_torch.ops import conv_variants as cv
 from wav2sleep_tpu_torch.ops.conv_k3 import conv_k3_reference
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 SCRIPT = Path(__file__).resolve().parents[1] / 'scripts' / 'profile_pallas_variants.py'
 D = 128
 # bf16: |port - Pallas| <= TOL (|y| + rms(y)). Both sum exact bf16 products

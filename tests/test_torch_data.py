@@ -21,6 +21,8 @@ from wav2sleep_tpu_torch.ops import ema_norm
 from wav2sleep_tpu_torch.ops import q8_transport as q8
 from wav2sleep_tpu_torch.train import datamodule as dm
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 EPOCHS = 6  # sleep epochs a night
 SPE = {'ECG': 1024, 'PPG': 1024, 'ABD': 256, 'THX': 256}
 

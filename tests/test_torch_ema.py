@@ -15,6 +15,8 @@ from wav2sleep_tpu.ops.pallas_ema import ema_normalize_pallas
 from wav2sleep_tpu_torch.ops import ema_norm
 from wav2sleep_tpu_torch.settings import CAUSAL_NORM_BASELINE_TAU_SECONDS, CAUSAL_NORM_TAU_SECONDS
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 
 def _rows(case):
     """tests/data/test_pallas_ema.py's inputs: (x [N, T], fs, baseline tau, Pallas block)."""

@@ -1,12 +1,13 @@
-"""The port's other model kinds against the JAX package's on the CPU: every
-norm kind through ``ConvLayer1D`` and ``ConvBlock1D`` (batch norm in train
-mode with its running statistics, and in eval mode), causal and not; the
+"""The port's other model kinds against the JAX package's on the CPU: the
 post-norm mixer; causal, chunk-causal, batch-norm and the other narrow
-wav2sleep kinds; the full-length SleepPPG-Net; prefix invariance of the
-causal kinds; weight conversion and checkpoint folders both ways for both
-families. Inputs and weights come from a numpy seed; weights cross with
-``convert.from_jax_variables``. Logits within atol/rtol 5e-4, running
-statistics within rtol 1e-4."""
+wav2sleep kinds; prefix invariance of the causal kinds; weight conversion
+and checkpoint folders both ways. Every norm kind through ``ConvLayer1D``
+and ``ConvBlock1D`` is in ``tests/test_torch_families_norms.py``, the
+full-length SleepPPG-Net and its conversion and folders in
+``tests/test_torch_families_ppgnet.py`` (the test run spreads files over
+its workers); both use this module's helpers. Inputs and weights come from
+a numpy seed; weights cross with ``convert.from_jax_variables``. Logits
+within atol/rtol 5e-4, running statistics within rtol 1e-4."""
 
 import numpy as np
 import pytest
@@ -20,11 +21,11 @@ from wav2sleep_tpu.checkpoint import _flatten, export_torch_state_dict
 from wav2sleep_tpu.checkpoint import save_checkpoint_folder as jax_save_folder
 from wav2sleep_tpu.convert import convert_state_dict
 from wav2sleep_tpu.instantiate import instantiate
-from wav2sleep_tpu.models import layers as jlayers
 from wav2sleep_tpu_torch import api, checkpoint, instantiate as tinstantiate
 from wav2sleep_tpu_torch.convert import from_jax_variables
-from wav2sleep_tpu_torch.models import layers
 from wav2sleep_tpu_torch.models.ppgnet import SleepPPGNet
+
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 TOL = 5e-4  # f32 logits, atol and rtol (PERF.md §2)
 STATS_RTOL = 1e-4  # running statistics
@@ -126,49 +127,6 @@ def check_stats(tmodel, jax_stats, family='wav2sleep', what='', gate=True):
     return worst
 
 
-# ---------------------------------------------------------------- layers
-
-NORM_CASES = ['instance', 'layer', 'batch-train', 'batch-eval', 'rms', 'group', 'group-instance', 'weight', 'none']
-
-
-@pytest.mark.parametrize('causal', [False, True], ids=['acausal', 'causal'])
-@pytest.mark.parametrize('module', ['layer', 'block'])
-@pytest.mark.parametrize('case', NORM_CASES)
-def test_norms_through_layers_match_jax(case, module, causal):
-    """One ConvLayer1D (k 5, dilation 2) or one ConvBlock1D (three k-3
-    convs, the third at stride 2, and the residual) with each norm kind,
-    causal and not, against JAX's; batch norm in train mode also updates
-    its running statistics as JAX's ``mutable=['batch_stats']`` does.
-    'group-instance' has 4 channels, fewer than the 8 groups: instance
-    norm with an affine."""
-    norm = {'batch-train': 'batch', 'batch-eval': 'batch', 'group-instance': 'group', 'none': None}.get(case, case)
-    train = case == 'batch-train'
-    ci, co = 8, 4 if case == 'group-instance' else 16
-    if module == 'layer':
-        jm = jlayers.ConvLayer1D(features=co, kernel_size=5, dilation=2, padding=4, causal=causal,
-                                 activation='gelu', norm=norm)
-        tm = layers.ConvLayer1D(ci, co, 5, 1, 4, 2, causal=causal, activation='gelu', norm=norm)
-    else:
-        jm = jlayers.ConvBlock1D(features=co, activation='leaky', norm=norm, causal=causal)
-        tm = layers.ConvBlock1D(ci, co, activation='leaky', norm=norm, causal=causal)
-    rng = np.random.default_rng(NORM_CASES.index(case))
-    x = (rng.normal(size=(2, 64, ci)) * 1.5 + 0.3).astype(np.float32)
-    variables = jax_variables(jm, x, seed=1)
-    tm.load_state_dict(from_jax_variables(variables), strict=True)
-    if train:
-        want, mutated = jm.apply(variables, x, train=True, mutable=['batch_stats'])
-    else:
-        want = jm.apply(variables, x)
-    tm.train(train)
-    with torch.no_grad():
-        got = tm(_t(x))
-    assert got.shape == want.shape
-    _close(got.numpy(), want, what=f'{module} {case} causal={causal}')
-    if train:
-        check_stats(tm, mutated['batch_stats'], what=f'{module} {case}')
-        assert {int(v) for k, v in tm.state_dict().items() if k.endswith('num_batches_tracked')} == {1}
-
-
 # ---------------------------------------------------------------- forwards
 
 FORWARD_CASES = {
@@ -200,36 +158,6 @@ def test_wav2sleep_kinds_match_jax(kind):
     assert got.shape == want.shape == (2, 4, 4)
     _close(got, want, what=kind)
     assert tmodel.causal == FORWARD_CASES[kind].get('causal', False)
-
-
-@pytest.fixture(scope='module')
-def ppgnet_pair():
-    cfg = ppgnet_config()
-    return (cfg, *model_pair(cfg, np.zeros((1, PPG_LEN), np.float32)))
-
-
-def test_ppgnet_matches_jax(ppgnet_pair):
-    """The full-length SleepPPG-Net (feature_dim 32, B=2): eval mode on the
-    running statistics, then train mode (dropout 0) with the batch's
-    statistics and the updated running statistics."""
-    _, jmodel, variables, tmodel = ppgnet_pair
-    x = np.random.default_rng(3).normal(size=(2, PPG_LEN)).astype(np.float32)
-    want = np.asarray(jax.jit(lambda v, a: jmodel.apply(v, a))(variables, jnp.asarray(x)))
-    with torch.no_grad():
-        got = tmodel.eval()(_t(x)).numpy()
-    assert got.shape == (2, 1200, 4)
-    _close(got, want, what='SleepPPG-Net eval')
-    want, mutated = jax.jit(lambda v, a: jmodel.apply(v, a, train=True, mutable=['batch_stats']))(
-        variables, jnp.asarray(x))
-    model = tinstantiate.build_model(ppgnet_pair[0])
-    model.load_state_dict(tmodel.state_dict(), strict=True)
-    with torch.no_grad():
-        got = model.train()(_t(x)).numpy()
-    _close(got, want, what='SleepPPG-Net train')
-    check_stats(model, mutated['batch_stats'], 'ppgnet', 'SleepPPG-Net train')
-    with pytest.raises(ValueError, match='unexpected shape'):
-        tmodel(torch.zeros(1, PPG_LEN // 2))
-    assert (tmodel.valid_signals, tmodel.num_classes, tmodel.causal) == (['PPG'], 4, False)
 
 
 @pytest.mark.parametrize('chunk_causal', [True, False], ids=['chunk_causal', 'causal'])
@@ -274,8 +202,14 @@ def _jax_export_mapping(variables, family):
     return {k: v.numpy() for k, v in torch.load(buf, weights_only=True).items()}
 
 
-@pytest.mark.parametrize('family', ['wav2sleep', 'ppgnet'])
-def test_from_jax_variables_is_the_export_mapping(family, ppgnet_pair):
+@pytest.mark.parametrize('family', ['wav2sleep'])
+def test_from_jax_variables_is_the_export_mapping(family):
+    """A batch-norm wav2sleep (SleepPPG-Net's case is in
+    ``tests/test_torch_families_ppgnet.py``): see ``check_export_mapping``."""
+    check_export_mapping(family, None)
+
+
+def check_export_mapping(family, ppgnet_pair):
     """Batch-norm models of both families: the port's conversion gives the
     JAX package's export exactly (keys, [C] batch-norm affines, [1, C, 1]
     layer-norm affines, running statistics, ``num_batches_tracked`` 0),
@@ -336,8 +270,14 @@ def _port_logits(model, x, family, dtype=torch.float32):
         return model(inp['PPG'] if family == 'ppgnet' else inp).float().numpy()
 
 
-@pytest.mark.parametrize('name', ['batch_norm_wav2sleep', 'ppgnet'])
-def test_port_folder_loads_in_jax(name, ppgnet_pair, tmp_path):
+@pytest.mark.parametrize('name', ['batch_norm_wav2sleep'])
+def test_port_folder_loads_in_jax(name, tmp_path):
+    """See ``check_port_folder_in_jax`` (SleepPPG-Net's case is in
+    ``tests/test_torch_families_ppgnet.py``)."""
+    check_port_folder_in_jax(name, None, tmp_path)
+
+
+def check_port_folder_in_jax(name, ppgnet_pair, tmp_path):
     """A folder the port writes (config.yaml, state_dict.pth with the
     running statistics) loads in the JAX package's ``load_model`` and gives
     the port's logits."""
@@ -349,8 +289,14 @@ def test_port_folder_loads_in_jax(name, ppgnet_pair, tmp_path):
     _close(got, want, what=f'{name}: port folder in JAX')
 
 
-@pytest.mark.parametrize('name', ['batch_norm_wav2sleep', 'ppgnet'])
-def test_jax_folder_loads_in_the_port(name, ppgnet_pair, tmp_path):
+@pytest.mark.parametrize('name', ['batch_norm_wav2sleep'])
+def test_jax_folder_loads_in_the_port(name, tmp_path):
+    """See ``check_jax_folder_in_the_port`` (SleepPPG-Net's case is in
+    ``tests/test_torch_families_ppgnet.py``)."""
+    check_jax_folder_in_the_port(name, None, tmp_path)
+
+
+def check_jax_folder_in_the_port(name, ppgnet_pair, tmp_path):
     """A folder the JAX package writes with its torch export loads
     ``strict=True`` in the port's ``load_model`` with equal logits; bf16
     casts the running statistics as well as the parameters, as the JAX

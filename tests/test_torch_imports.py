@@ -1,14 +1,17 @@
 """The torch port imports nothing of the JAX package ``wav2sleep_tpu``, and
-neither JAX, flax, optax, pandas, pyarrow nor yaml: the port and
+neither JAX, flax, optax, pandas, pyarrow, yaml nor matplotlib: the port and
 chip_smoke.py import, and drive their host paths (the native library, the
 EDF reader and writer, every extractor, weight conversion, a checkpoint
 folder, the serving CLI and the training bench on the CPU), with all of
 those unavailable. No file of the port names them in an import, at module
-level or inside a function, with one exception: the parquet module
-(``data/parquet.py``) imports pyarrow inside its functions, and with pyarrow
-available (the rest still blocked) the dataset, the data module, a
-one-epoch fit and the inference API (``prepare`` -> ``predict_on_folder``
-over an EDF and a CSV night) run on the CPU."""
+level or inside a function, with two exceptions: the parquet module
+(``data/parquet.py``) imports pyarrow and the plotting module
+(``plotting.py``) matplotlib inside their functions. With pyarrow available
+(the rest still blocked) the dataset, the data module, a one-epoch fit
+(its confusion figures skipped), the inference API (``prepare`` ->
+``predict_on_folder`` over an EDF and a CSV night) and the corpus path (an
+XML and a stg parse, ``process_night``, the ingest and split command lines
+on synthetic nights) run on the CPU."""
 
 import os
 import re
@@ -16,12 +19,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'wav2sleep_tpu_torch'
-BLOCKED = ('wav2sleep_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml')
+BLOCKED = ('wav2sleep_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'pandas', 'pyarrow', 'yaml', 'matplotlib', 'seaborn')
 
-# The one file of the port that may name pyarrow, inside its functions.
+# The one file of the port that may name pyarrow, and the one that may name
+# matplotlib (and seaborn), inside their functions.
 PYARROW_MODULE = PORT / 'data' / 'parquet.py'
+PLOTTING_MODULE = PORT / 'plotting.py'
 
 _BLOCKER = '''
 import importlib, importlib.machinery, pkgutil, sys, tempfile
@@ -107,14 +114,15 @@ print('IMPORTED', len(mods), 'LEAKED', leaked)
 
 
 def test_port_imports_without_jax_pandas_yaml():
-    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''),
+               OMP_NUM_THREADS='1')
     proc = subprocess.run(
         [sys.executable, '-c', _PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 56, proc.stdout  # every module of the package was reached
+    assert n >= 70, proc.stdout  # every module of the package was reached
 
 
 _FIT_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''
@@ -173,7 +181,8 @@ print('FIT', out['val_loss'], 'LEAKED', leaked)
 def test_parquet_path_and_a_fit_with_pyarrow_only():
     """pyarrow available, the JAX package, JAX, pandas and yaml blocked: the
     dataset, the data module, a one-epoch CPU fit and the inference API run."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''),
+               OMP_NUM_THREADS='1')
     proc = subprocess.run(
         [sys.executable, '-c', _FIT_PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
     )
@@ -181,19 +190,77 @@ def test_parquet_path_and_a_fit_with_pyarrow_only():
     assert 'LEAKED []' in proc.stdout, proc.stdout
 
 
+_CORPUS_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''
+import os
+import pyarrow  # available here
+from wav2sleep_tpu_torch import ingest
+from wav2sleep_tpu_torch.data import get_split, parse_txt_annotations, parse_xml_annotations, synth
+from wav2sleep_tpu_torch.data.edf import write_edf
+from wav2sleep_tpu_torch.data.parquet import read_frame
+from wav2sleep_tpu_torch.preprocessing import create_splits, ingest as ingest_cli
+
+with tempfile.TemporaryDirectory() as d:
+    sid = get_split('mesa', 'train')[0]
+    raw = d + '/mesa/polysomnography'
+    os.makedirs(raw + '/edfs')
+    os.makedirs(raw + '/annotations-events-nsrr')
+    fps, stages = synth.write_nights(raw + '/edfs', 1, 0.1, seed=0)
+    os.rename(fps[0], f'{raw}/edfs/{sid}.edf')
+    events = ''.join('<ScoredEvent>\\n<EventType>Stages.Stages</EventType>\\n'
+                     f'<EventConcept>x|{[0, 2, 3, 5][s]}</EventConcept>\\n<Start>{30 * i}</Start>\\n'
+                     '<Duration>30</Duration>\\n</ScoredEvent>' for i, s in enumerate(stages[0]))
+    with open(f'{raw}/annotations-events-nsrr/{sid}-nsrr.xml', 'w') as f:
+        f.write('<EventConcept>Recording Start Time</EventConcept>\\n<Start>0</Start>' + events)
+    seconds, labels = parse_xml_annotations(f'{raw}/annotations-events-nsrr/{sid}-nsrr.xml')
+    assert len(seconds) == 12 and seconds[0] == 30.0
+    write_edf(d + '/w.edf', {'ECG': np.zeros(5 * 3600)}, {'ECG': 1.0})
+    with open(d + '/w.stg.txt', 'w') as f:
+        f.write('Epoch\\tUser-Defined Stage\\n' + ''.join(f'{i}\\t{i % 6}\\n' for i in range(1, 601)))
+    with open(d + '/w.log.txt', 'w') as f:
+        f.write('22:00:00 1\\tRecording Started\\n')
+    assert parse_txt_annotations(d + '/w.stg.txt')[1][:6].tolist() == [1.0, 2.0, 3.0, 3.0, 4.0, 0.0]
+    args = ingest.prepare_dataset(d + '/mesa', d + '/out', 'mesa')[sid]
+    assert ingest.process_night(columns=['ECG', 'PPG', 'ABD', 'THX'], **args)
+    assert sorted(read_frame(args['output_fp']).columns) == ['ABD', 'ECG', 'PPG', 'Stage', 'THX']
+    assert ingest.read_signal_metadata(args['output_fp'])['ECG']['unit'] == 'uV'
+    ingest_cli.main(['--folder', d + '/mesa', '--output-folder', d + '/out2', '--max-parallel', '2'])
+    create_splits.main(['--folder', d + '/out2/mesa'])
+    assert os.listdir(d + '/out2/mesa/train') == [sid + '.parquet']
+leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
+print('CORPUS LEAKED', leaked)
+'''
+
+
+def test_corpus_path_with_pyarrow_only():
+    """pyarrow available, the JAX package, JAX, pandas, yaml and matplotlib
+    blocked: every corpus module imports, an XML and a stg file parse, a
+    synthetic night is ingested (``process_night``, then the ingest command
+    line over two spawned processes) and split."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get('PYTHONPATH', ''),
+               OMP_NUM_THREADS='1')
+    proc = subprocess.run(
+        [sys.executable, '-c', _CORPUS_PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert 'CORPUS LEAKED []' in proc.stdout, proc.stdout
+
+
 def test_only_the_parquet_module_names_pyarrow_and_none_pandas_or_yaml():
     """No import of pandas or yaml anywhere in the port or chip_smoke.py;
-    pyarrow only in ``data/parquet.py``, and there only inside functions
-    (indented), so the module imports without it."""
-    any_import = re.compile(r'^(\s*)(?:import|from)\s+(pandas|pyarrow|yaml)\b', re.M)
+    pyarrow only in ``data/parquet.py`` and matplotlib (with seaborn) only in
+    ``plotting.py``, and there only inside functions (indented), so the
+    modules import without them."""
+    any_import = re.compile(r'^(\s*)(?:import|from)\s+(pandas|pyarrow|yaml|matplotlib|seaborn)\b', re.M)
+    allowed = {PYARROW_MODULE: ('pyarrow',), PLOTTING_MODULE: ('matplotlib', 'seaborn')}
     offenders = []
     for p in _port_files():
         for m in any_import.finditer(p.read_text()):
-            if p == PYARROW_MODULE and m.group(2) == 'pyarrow' and m.group(1):
+            if m.group(2) in allowed.get(p, ()) and m.group(1):
                 continue
             offenders.append(f'{p.relative_to(ROOT)}:{m.group(0).strip()!r}')
     assert not offenders, offenders
-    assert any_import.search(PYARROW_MODULE.read_text())  # the exception is used
+    assert any_import.search(PYARROW_MODULE.read_text())  # the exceptions are used
+    assert any_import.search(PLOTTING_MODULE.read_text())
 
 
 def _port_files():
@@ -204,7 +271,10 @@ def _port_files():
                  'profile_train.py', 'data/parquet.py', 'data/dataset.py', 'train/datamodule.py', 'train/loop.py',
                  'train/checkpointing.py', 'train/tuning.py', 'train/supervise.py', 'train/__main__.py', 'config.py',
                  'stats.py', 'log.py', 'native/src/mulaw8.cpp', 'api.py', 'hub.py', 'data/frame.py',
-                 'cli/__init__.py', 'cli/predict.py', 'cli/main.py', 'cli/data_utils.py', 'cli/model_utils.py'):
+                 'cli/__init__.py', 'cli/predict.py', 'cli/main.py', 'cli/data_utils.py', 'cli/model_utils.py',
+                 'ingest.py', 'plotting.py', 'data/utils.py', 'data/xml.py', 'data/txt.py', 'data/nsrr.py',
+                 'data/synth.py', 'parallel/map.py', 'preprocessing/fix_edfs.py', 'preprocessing/ingest.py',
+                 'preprocessing/create_splits.py', 'preprocessing/census_split.py'):
         assert PORT / name in files, name
     return files
 

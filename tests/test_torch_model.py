@@ -20,6 +20,8 @@ from wav2sleep_tpu_torch.convert import from_jax_variables
 from wav2sleep_tpu_torch.models import layers
 from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_model
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), 'goldens')
 TOL = dict(atol=5e-4, rtol=5e-4)
 

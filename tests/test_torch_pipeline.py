@@ -22,6 +22,7 @@ from wav2sleep_tpu_torch.data import edf as tedf
 from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_model
 
 from .test_torch_model import jax_random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SIGNALS = ('ECG', 'THX')
 S = 6  # epochs per night

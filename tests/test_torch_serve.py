@@ -28,6 +28,7 @@ from wav2sleep_tpu_torch.models.wav2sleep import flagship_config
 from . import test_torch_transports as transports
 from .test_torch_pipeline import SMALL_CFG, model_pair  # noqa: F401 - a fixture
 from .test_torch_transports import HOURS, N_GRID, S, SIGNALS, write_nights
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 5e-4

@@ -2,9 +2,12 @@
 against the JAX package's on the CPU, on seeded numpy inputs: the metrics,
 the schedule and the plateau controller, the masker and the flip (by
 statistics: the RNG streams differ), the q8/q16 codecs, the optimizer
-against optax, the whole step over three steps and one q8 step on the same
-weights and batch, the bf16 step, remat, and K1/K2's gradients against the
-Pallas kernels' ``custom_vjp`` (interpreted)."""
+against optax, and the whole step over three steps and one q8 step on the
+same weights and batch. The bf16 step, remat, the step's randomness, the
+eval step and ``train_bench`` are in ``tests/test_torch_train_remat.py``,
+K1/K2's gradients against the Pallas kernels' ``custom_vjp`` in
+``tests/test_torch_train_grads.py``: the test run spreads files over its
+workers."""
 
 import json
 
@@ -17,23 +20,20 @@ import jax.numpy as jnp
 
 from __graft_entry__ import _flagship_model
 from wav2sleep_tpu.instantiate import instantiate
-from wav2sleep_tpu.ops import block_domain as jbd
-from wav2sleep_tpu.ops import pallas_conv
 from wav2sleep_tpu.ops import q8_transport as jq8
 from wav2sleep_tpu.settings import COLS_TO_SAMPLES_PER_EPOCH as SPE
 from wav2sleep_tpu.train import metrics as jmetrics
 from wav2sleep_tpu.train import scheduler as jscheduler
 from wav2sleep_tpu.train import step as jstep
-from wav2sleep_tpu_torch import train_bench
 from wav2sleep_tpu_torch.convert import from_jax_variables
 from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
-from wav2sleep_tpu_torch.ops import conv_k3 as k1
 from wav2sleep_tpu_torch.ops import q8_transport as q8
 from wav2sleep_tpu_torch.train import metrics, scheduler
 from wav2sleep_tpu_torch.train import step as tstep
 from wav2sleep_tpu_torch.train.masker import SignalMasker, invert_signals, validate_batch
 
 from .test_torch_model import jax_random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SIGNALS = ('ABD', 'THX', 'ECG', 'PPG')
 STEP_TOL = 5e-4  # loss and gradient norm per step, relative: the forward's gate
@@ -552,150 +552,3 @@ def _port_loss_and_grads(tmodel, x, y, compute_dtype):
     step = tstep.make_train_step(tmodel, cap, 4, flip_polarity=False, compute_dtype=compute_dtype)
     _, m = step(state, ({k: _t(v) for k, v in x.items()}, _t(y)), 0)
     return float(m['loss']), dict(zip(state.params, cap.grads))
-
-
-def test_bf16_step_is_within_twice_jaxs_bf16_error():
-    """The port's bf16 loss and gradients against its f32 ones (which equal
-    JAX's f32 ones, above), within twice the distance of JAX's bf16 step
-    from the same f32 values (the method of ROADMAP fault C.2). The model
-    has the respiratory encoders only, which keeps XLA's bf16 compile
-    short."""
-    signals = ('ABD', 'THX')
-    jmodel, variables, tmodel = _narrow_pair(signals)
-    x, y = _batch(signals=signals)
-
-    def jloss(params):
-        p16 = jax.tree_util.tree_map(lambda p: p.astype(jnp.bfloat16), params)
-        xin = {k: jnp.asarray(v, jnp.bfloat16) for k, v in x.items()}
-        logits = jmodel.apply({'params': p16}, xin, train=True, rngs={'dropout': jax.random.PRNGKey(0)})
-        return jmetrics.cross_entropy_ignore_index(logits.reshape(-1, 4), jnp.asarray(y).reshape(-1))
-
-    jl, jg = jax.jit(jax.value_and_grad(jloss))(variables['params'])
-    jg = _as_torch_params(jg)
-    l32, g32 = _port_loss_and_grads(tmodel, x, y, None)
-    l16, g16 = _port_loss_and_grads(tmodel, x, y, torch.bfloat16)
-    assert all(g.dtype == torch.float32 for g in g16.values())  # f32 gradients of the f32 masters
-
-    def dist(g):
-        return float(torch.sqrt(sum(((g[k] - g32[k]) ** 2).sum() for k in g32)))
-
-    jax_err = (abs(float(jl) - l32), dist(jg))
-    port_err = (abs(l16 - l32), dist(g16))
-    print(f'bf16 vs f32: loss {port_err[0]:.3e} (JAX {jax_err[0]:.3e}), gradients {port_err[1]:.3e} '
-          f'(JAX {jax_err[1]:.3e}), |g| {dist({k: 0 * v for k, v in g32.items()}):.3e}')
-    assert 0 < jax_err[1] and port_err[1] <= 2 * jax_err[1]
-    assert port_err[0] <= 2 * max(jax_err[0], 2.0**-8 * abs(l32))
-
-
-@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
-def test_remat_gives_the_same_gradients(compute_dtype):
-    x, y = _batch(seed=3)
-    out = []
-    for remat in (False, True):
-        cfg = flagship_config(32, 32)
-        cfg['encoders']['remat'] = remat
-        model = build_wav2sleep(**cfg)
-        out.append(_port_loss_and_grads(model, x, y, compute_dtype))
-    (l0, g0), (l1, g1) = out
-    assert l0 == l1
-    for k in g0:
-        torch.testing.assert_close(g1[k], g0[k], rtol=0, atol=1e-6 if compute_dtype is None else 0)
-
-
-def test_step_randomness_is_seeded_and_leaves_the_global_stream():
-    """Dropout, flip and masker draw from (seed, step): one seed gives one
-    step twice, another seed another step; the global RNG is untouched."""
-    x, y = _batch(B=3, seed=4)
-    losses = {}
-    for seed in (0, 0, 1):
-        model = build_wav2sleep(**flagship_config(32, 32))  # dropout 0.1 in the mixers
-        opt = tstep.make_optimizer(1e-3)
-        state = tstep.init_train_state(model, opt)
-        masker = SignalMasker(train_bench.DROPOUTS, train_bench.BACKUPS)
-        step = tstep.make_train_step(model, opt, 4, masker=masker, flip_polarity=True)
-        before = torch.random.get_rng_state()
-        _, m = step(state, ({k: _t(v) for k, v in x.items()}, _t(y)), seed)
-        assert torch.equal(torch.random.get_rng_state(), before)
-        losses.setdefault(seed, []).append(float(m['loss']))
-    assert losses[0][0] == losses[0][1] and losses[1][0] != losses[0][0]
-
-
-def test_eval_step_decodes_and_masks():
-    tmodel = build_wav2sleep(**flagship_config(32, 32))
-    x, y = _batch(seed=5)
-    enc = {k: tuple(_t(a) for a in v) for k, v in q8.encode_batch_q16(x).items()}
-    present = {'ECG': torch.tensor([False, True])}
-    ev = tstep.make_eval_step(tmodel, 4)
-    params = dict(tmodel.named_parameters())
-    got = ev(params, (enc, _t(y)), present)
-    with torch.no_grad():
-        logits = tmodel.eval()(q8.dequant_batch(enc), present=present)
-    torch.testing.assert_close(got['preds'], logits.argmax(-1))
-    torch.testing.assert_close(got['loss'], metrics.cross_entropy_ignore_index(logits.reshape(-1, 4), _t(y).reshape(-1)))
-    assert int(got['cmat'].sum()) == int((y >= 0).sum())
-    # Other parameters (an EMA) go in by name; the model's own are kept.
-    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
-    assert float(ev(zeros, (enc, _t(y)))['preds'].abs().sum()) == 0
-    assert torch.equal(ev(params, (enc, _t(y)), present)['preds'], got['preds'])
-
-
-def test_train_bench_needs_a_card_unless_told_cpu(capsys):
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match='no CUDA device'):
-            train_bench.run(batch=1, epochs_per_night=1, k=2, reps=1)
-    train_bench.main(['--device', 'cpu', '--batch', '1', '--epochs-per-night', '1', '--feature-dim', '16',
-                      '--precision', 'float32', '--k', '2', '--reps', '1', '--transport', 'q8'])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line['device'] == 'cpu' and line['card'] is None and line['peak_gib'] is None
-    assert np.isfinite(line['loss']) and line['compute_ms_per_step'] > 0 and line['nights_per_hour_e2e'] > 0
-    assert line['k1_launches_per_step'] == 0  # the plain versions run on the CPU
-
-
-# ---------------------------------------------------------------- K1/K2 grads
-
-
-@pytest.mark.parametrize('stride', [1, 2])
-@pytest.mark.parametrize('phi', ['identity', 'norm+gelu'])
-@pytest.mark.parametrize('stats', [False, True], ids=['K1', 'K2'])
-def test_kernel_gradients_match_the_pallas_custom_vjp(monkeypatch, stats, phi, stride):
-    """Gradients through the JAX package's Pallas convs (interpreted; their
-    ``custom_vjp`` backward is the plain reference's) against ``conv_k3`` /
-    ``conv_k3_stats`` (whose backward is autograd of their plain versions),
-    for random cotangents of every output."""
-    monkeypatch.setattr(pallas_conv, '_INTERPRET', True)
-    ci, co, eps = 16, 32, 1e-2
-    rng = np.random.default_rng(10 * stride + 2 * stats + (phi != 'identity'))
-    B, T = 2, 256 * stride
-    x = (rng.normal(size=(B, T, ci)) * 1.5 + 0.3).astype(np.float32)
-    w = (rng.normal(size=(3, ci, co)) * 0.2).astype(np.float32)
-    b = (rng.normal(size=(co,)) * 0.5).astype(np.float32)
-    mu = (rng.normal(size=(B, ci)) * 0.3).astype(np.float32)
-    inv = rng.uniform(0.5, 2.0, size=(B, ci)).astype(np.float32)
-    gy = rng.normal(size=(B, T // stride, co)).astype(np.float32)
-    gmu, ginv = (rng.normal(size=(B, co)).astype(np.float32) for _ in range(2))
-    fused = phi != 'identity'
-    args = (x, w, b, mu, inv) if fused else (x, w, b)
-
-    def jax_loss(*a):
-        data = a[0].reshape(B, T * ci // 128, 128)
-        if stats:
-            fn = pallas_conv.sd_conv_blocks_fused_stats if fused else pallas_conv.sd_conv_blocks_stats
-            y, m, i = fn(data, *a[1:], ci, co, stride, *(('gelu',) if fused else ()), eps)
-            extra = jnp.sum(m * gmu) + jnp.sum(i * ginv)
-        else:
-            fn = pallas_conv.sd_conv_blocks_fused if fused else pallas_conv.sd_conv_blocks
-            y, extra = fn(data, *a[1:], ci, co, stride, *(('gelu',) if fused else ())), 0.0
-        y = jbd.from_blocks(jbd.BlockedArray(data=y, channels=co))
-        return jnp.sum(y * gy) + extra
-
-    want = jax.grad(jax_loss, argnums=tuple(range(len(args))))(*(jnp.asarray(a) for a in args))
-    targs = [_t(a).requires_grad_() for a in args]
-    conv_args = (*targs, *((None, None) if not fused else ()), stride, 'gelu' if fused else None)
-    if stats:
-        y, m, i = k1.conv_k3_stats(*conv_args, eps)
-        loss = (y * _t(gy)).sum() + (m * _t(gmu)).sum() + (i * _t(ginv)).sum()
-    else:
-        loss = (k1.conv_k3(*conv_args) * _t(gy)).sum()
-    got = torch.autograd.grad(loss, targs)
-    for name, g, e in zip(('x', 'w', 'bias', 'mu', 'inv'), got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(e).reshape(g.shape), atol=1e-4, rtol=1e-4, err_msg=name)

@@ -25,6 +25,7 @@ from wav2sleep_tpu_torch.train.masker import SignalMasker
 from wav2sleep_tpu_torch.train.supervise import SupervisedRunFailed, run_supervised
 
 from .test_torch_trainer import write_corpus
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 CONFIG_DIR = str(cli.CONFIG_DIR)
 

@@ -1,7 +1,9 @@
 """The port's training step on the batch-norm model kinds against the JAX
-package's on the CPU: three steps of a narrow batch-norm wav2sleep and two
-of the full-length SleepPPG-Net (feature_dim 32) on the same weights and
-batch, remat off and dropout 0 (the two stacks' dropout masks cannot
+package's on the CPU: three steps of a narrow batch-norm wav2sleep (two of
+the full-length SleepPPG-Net, feature_dim 32, in
+``tests/test_torch_train_families_ppgnet.py``, which uses this module's
+helpers: the test run spreads files over its workers) on the same weights
+and batch, remat off and dropout 0 (the two stacks' dropout masks cannot
 agree), each step's loss and gradient norm, the running statistics after
 each step, the parameters and EMA after the last (with the Adam rule of
 tests/test_torch_train.py, ROADMAP §C.7), and the eval step on the running
@@ -29,6 +31,7 @@ from .test_torch_families import (PPG_LEN, TOL, check_stats, model_pair, ppgnet_
                                   wav2sleep_inputs)
 from .test_torch_train import (ADAM_RATIO, NOISY_MOMENT, NOISY_SHARE, PARAM_ATOL, SCHEDULE, STEP_OPT, STEP_TOL,
                                _adam_mu, _Capture)
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # name: (config, steps, each step from the port's state, gradient norm bound,
 # share of noisy elements)
@@ -111,8 +114,14 @@ def _param_gate(ours, theirs, noisy):
             sum(int(v.sum()) for v in noisy.values()), sum(v.numel() for v in noisy.values()))
 
 
-@pytest.fixture(scope='module', params=list(KINDS))
+@pytest.fixture(scope='module', params=['batch_norm_wav2sleep'])
 def trajectory(request):
+    """The narrow batch-norm wav2sleep's trajectory (``run_trajectory``;
+    SleepPPG-Net's is in ``tests/test_torch_train_families_ppgnet.py``)."""
+    return run_trajectory(request.param)
+
+
+def run_trajectory(name):
     """Both stacks' steps on one batch (flip and masker off, EMA 0.9 from
     optimizer step 1), from one init. The narrow wav2sleep runs free; each
     SleepPPG-Net step starts JAX from the port's state (``_synced``), since
@@ -121,7 +130,6 @@ def trajectory(request):
     against JAX's update from the port's state before the step (and, free,
     against JAX's run), and the parameters and EMA against JAX's with the
     noisy elements since the last common state. Then both eval steps."""
-    name = request.param
     cfg, n_steps, sync, _, _ = KINDS[name]
     family = tinstantiate.model_family(cfg)
     jmodel, variables, tmodel = model_pair(cfg, _x0(name))
@@ -236,8 +244,14 @@ def _one_step(cfg, remat, compute_dtype=None, seed=2):
     return float(m['loss']), dict(zip(state.params, opt.grads)), {k: v.clone() for k, v in state.batch_stats.items()}
 
 
-@pytest.mark.parametrize('case', REMAT_CASES)
+@pytest.mark.parametrize('case', ['batch_norm_wav2sleep-f32', 'batch_norm_wav2sleep-bf16'])
 def test_remat_step_equals_the_plain_step(case):
+    """See ``check_remat`` (SleepPPG-Net's case is in
+    ``tests/test_torch_train_families_ppgnet.py``)."""
+    check_remat(case)
+
+
+def check_remat(case):
     """Rematerialised blocks recompute their forward in the backward; batch
     norm there must not take a second momentum step. Remat on and off give
     the same loss, gradients and running statistics, each batch norm
@@ -289,44 +303,3 @@ def test_bf16_batch_norm_over_few_values_is_finite_as_in_jaxs_jit():
     assert np.isfinite(t16).all() and np.isfinite(j16).all()
     np.testing.assert_allclose(t32, j32, atol=TOL, rtol=TOL)
     assert port_err <= 2 * max(jax_err, 2.0**-8 * np.abs(j32).max())
-
-
-def test_ppgnet_gradient_against_f64():
-    """Where the two stacks part on SleepPPG-Net: step 1's gradients (batch
-    norm over 1,228,800 samples a channel in the first window blocks) of
-    the port in f32 and of JAX in f32 against the port's in f64. The port's
-    gradient and gradient norm are as close to the f64 ones as JAX's
-    (within twice its distance); the loss within 1e-5 relative."""
-    from wav2sleep_tpu.train.metrics import cross_entropy_ignore_index as jce
-    from wav2sleep_tpu_torch.train.metrics import cross_entropy_ignore_index as tce
-
-    cfg = KINDS['ppgnet'][0]
-    jmodel, variables, tmodel = model_pair(cfg, _x0('ppgnet'))
-    x, y = _batch('ppgnet')
-
-    def jloss(p):
-        logits, _ = jmodel.apply({'params': p, 'batch_stats': variables['batch_stats']}, jnp.asarray(x['PPG']),
-                                 train=True, mutable=['batch_stats'])
-        return jce(logits.reshape(-1, 4), jnp.asarray(y).reshape(-1))
-
-    jl, jg = jax.jit(jax.value_and_grad(jloss))(variables['params'])
-    grads = {'JAX f32': (float(jl), _as_torch(jg, 'ppgnet', variables['batch_stats']))}
-    for dtype in (torch.float32, torch.float64):
-        model = tinstantiate.build_model(cfg)
-        model.load_state_dict(tmodel.state_dict())
-        model.to(dtype).train()
-        loss = tce(model(_t(x['PPG']).to(dtype)).reshape(-1, 4), _t(y).reshape(-1))
-        g = torch.autograd.grad(loss, list(model.parameters()))
-        names = [n for n, _ in model.named_parameters()]
-        grads[f'port {str(dtype)[6:]}'] = (float(loss.detach()), {n: v.double() for n, v in zip(names, g)})
-    l64, g64 = grads.pop('port float64')
-    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum() for v in g.values())))  # noqa: E731
-    dist = {k: float(torch.sqrt(sum(((g[n].double() - g64[n]) ** 2).sum() for n in g64)))
-            for k, (_, g) in grads.items()}
-    gn = {k: abs(norm(g) - norm(g64)) for k, (_, g) in grads.items()}
-    worst = max(g64, key=lambda n: float((grads['port float32'][1][n] - g64[n]).norm()))
-    print(f'SleepPPG-Net step 1 against f64 (|g| {norm(g64):.4f}): gradient distance {dist}, |d grad norm| {gn}; '
-          f'the largest part in {worst} (f64 |g| {float(g64[worst].norm()):.3f}); losses '
-          f'{ {k: v[0] for k, v in grads.items()} }, f64 {l64:.7f}')
-    assert dist['port float32'] <= 2 * dist['JAX f32'] and gn['port float32'] <= 2 * gn['JAX f32']
-    assert abs(grads['port float32'][0] - l64) <= 1e-5 * l64

@@ -3,12 +3,14 @@
 ``Trainer.fit`` from the same initial weights on the same parquet corpus
 (losses, learning rates, confusion matrices, metrics.jsonl, parameters,
 predictions), the exported folder in JAX's ``load_model``, and the port's
-own behaviour: resume, early stopping, the checkpoint sidecar, the EMA
-both ways on restore, the offloaded EMA, the plateau cut, runs without or
-with a non-finite validation, batch-size tuning."""
+own behaviour: runs without or with a non-finite validation, the epoch
+seeds and the eval transport, bf16 and q8 fits, batch-size tuning. Resume,
+early stopping, the EMA on restore and the plateau cut are in
+``tests/test_torch_trainer_resume.py``, the offloaded EMA in
+``tests/test_torch_trainer_ema.py``; they use this module's corpus and
+trainer builder (the test run spreads files over its workers)."""
 
 import json
-import logging
 import os
 
 import numpy as np
@@ -22,13 +24,13 @@ from wav2sleep_tpu_torch import instantiate
 from wav2sleep_tpu_torch.convert import from_jax_variables
 from wav2sleep_tpu_torch.data import parquet
 from wav2sleep_tpu_torch.train import step as step_mod
-from wav2sleep_tpu_torch.train.checkpointing import CheckpointManager
 from wav2sleep_tpu_torch.train.datamodule import SleepDataModule
 from wav2sleep_tpu_torch.train.loop import Trainer, epoch_seed
 from wav2sleep_tpu_torch.train.tuning import tune_batch_size
 
 from .test_torch_train import ADAM_RATIO, PARAM_ATOL, _adam_mu, _noisy, _param_diffs
 from .train.test_trainer_smoke import EPOCHS_PER_NIGHT, MODEL_CFG, make_trainer
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 LOSS_RTOL = 5e-4  # per-epoch losses, port against JAX
 LR_ATOL = 1e-7
@@ -245,106 +247,6 @@ def test_resuming_past_the_last_epoch_returns_the_last_val_metrics(fits, tmp_pat
 
 def _params(trainer):
     return {k: v.detach().clone() for k, v in trainer.state.params.items()}
-
-
-def test_resume_continues_as_one_run(corpus, tmp_path):
-    """1 + 1 epochs equals 2 epochs (accumulation 2 over 3 micro-steps an
-    epoch, so the accumulation buffers cross the checkpoint; EMA on; masker
-    and flip on, seeded), and the restored state equals the saved one bit
-    for bit."""
-    from wav2sleep_tpu_torch.train.masker import SignalMasker
-
-    kw = dict(accumulate_grad_batches=2, ema_decay=0.9, ema_start_step=0, flip_polarity=True,
-              masker=SignalMasker({'ECG': 0.3, 'THX': 0.3}, backups=['ECG']), dm_kw=dict(batch_size=3))
-    whole = port_trainer(corpus, tmp_path / 'whole', epochs=2, **kw)
-    whole.fit()
-    first = port_trainer(corpus, tmp_path / 'parts', epochs=1, **kw)
-    first.fit()
-    assert first.state.opt_state.mini_step == 1  # mid-accumulation at the checkpoint
-    saved = (_params(first), [m.clone() for m in first.state.opt_state.mu],
-             {k: v.clone() for k, v in first.state.ema_params.items()}, first.state.step)
-    second = port_trainer(corpus, tmp_path / 'parts', epochs=2, model=instantiate.build_model(
-        MODEL_CFG, generator=torch.Generator().manual_seed(5)), **kw)
-    assert second.restore('last') == 1
-    assert all(torch.equal(a, b) for a, b in zip(saved[0].values(), _params(second).values()))
-    assert all(torch.equal(a, b) for a, b in zip(saved[1], second.state.opt_state.mu))
-    assert all(torch.equal(a, b) for a, b in zip(saved[2].values(), second.state.ema_params.values()))
-    assert second.state.step == saved[3] and second.state.opt_state.mini_step == 1
-    second.fit(resume_from='last')
-    for k, v in _params(whole).items():
-        torch.testing.assert_close(second.state.params[k], v, rtol=0, atol=1e-6)
-        torch.testing.assert_close(second.state.ema_params[k], whole.state.ema_params[k], rtol=0, atol=1e-6)
-    rows = [r for r in _rows(tmp_path / 'parts') if 'train_loss' in r]
-    assert [r['step'] for r in rows] == [0, 1]  # one metrics.jsonl, appended
-    assert rows[-1]['train_loss'] == pytest.approx([r for r in _rows(tmp_path / 'whole') if 'train_loss' in r][-1]
-                                                   ['train_loss'], rel=1e-6)
-
-
-def test_early_stopping_and_the_post_update_sidecar(corpus, tmp_path):
-    trainer = port_trainer(corpus, tmp_path / 'es', epochs=50, early_stopping_patience=1, lr=0.0)
-    out = trainer.fit()
-    assert trainer.current_epoch == 1  # lr 0: epoch 1 does not improve, patience 1
-    with open(tmp_path / 'es' / 'checkpoints' / 'last.meta.json') as f:
-        last = json.load(f)
-    with open(tmp_path / 'es' / 'checkpoints' / 'best.meta.json') as f:
-        best = json.load(f)
-    # lr 0 repeats epoch 0's val_loss: a tie is judged best, as in JAX.
-    assert last['epoch'] == best['epoch'] == 1 and last['val_loss'] == best['val_loss']
-    assert last['early_stopping'] == trainer.early_stopping.state_dict() == {'best': best['val_loss'], 'wait': 1}
-    assert set(last) == {'epoch', 'val_loss', 'grad_clip', 'early_stopping', 'plateau'}
-    assert out['val_loss'] == pytest.approx(last['val_loss'])
-
-
-def test_restore_reconciles_the_ema_both_ways(corpus, tmp_path, caplog):
-    with_ema = port_trainer(corpus, tmp_path / 'ema', epochs=1, ema_decay=0.9, ema_start_step=0)
-    with_ema.fit()
-    plain = port_trainer(corpus, tmp_path / 'plain', epochs=1)
-    plain.fit()
-    manager = CheckpointManager(str(tmp_path / 'ema' / 'checkpoints'))
-    caplog.set_level(logging.WARNING)
-    no_ema = port_trainer(corpus, tmp_path / 'x1', epochs=1)
-    manager.restore(no_ema, 'last')
-    assert no_ema.state.ema_params is None and 'EMA is disabled' in caplog.text
-    offload = port_trainer(corpus, tmp_path / 'x2', epochs=1, ema_decay=0.9, ema_offload=True)
-    manager.restore(offload, 'last')
-    assert 'no host_ema entry' in caplog.text
-    for k, v in offload.host_ema.items():
-        np.testing.assert_array_equal(v, with_ema.state.params[k].detach().numpy())
-    caplog.clear()
-    wants_ema = port_trainer(corpus, tmp_path / 'x3', epochs=1, ema_decay=0.9)
-    wants_ema.restore(str(tmp_path / 'plain' / 'checkpoints' / 'last'))
-    assert 'no in-graph EMA entry' in caplog.text
-    for k, v in wants_ema.state.ema_params.items():
-        torch.testing.assert_close(v, plain.state.params[k], rtol=0, atol=0)
-    offload.fit()  # saves a host_ema
-    caplog.clear()
-    port_trainer(corpus, tmp_path / 'x4', epochs=1).restore(str(tmp_path / 'x2' / 'checkpoints' / 'last'))
-    assert 'ema_offload is disabled' in caplog.text
-    with pytest.raises(FileNotFoundError, match='No checkpoint'):
-        plain.restore('nowhere/last')
-
-
-@pytest.mark.parametrize('accumulate', [1, 2])
-def test_offloaded_ema_equals_the_in_graph_ema(corpus, tmp_path, accumulate):
-    kw = dict(epochs=2, ema_decay=0.8, ema_start_step=1, accumulate_grad_batches=accumulate,
-              metric_fetch_every=1 if accumulate == 1 else 16, stage_ring=2, dm_kw=dict(batch_size=2))
-    graph = port_trainer(corpus, tmp_path / 'graph', **kw)
-    graph.fit()
-    host = port_trainer(corpus, tmp_path / 'host', ema_offload=True, **kw)
-    host.fit()
-    assert host.state.ema_params is None
-    for k, v in graph.state.ema_params.items():
-        np.testing.assert_allclose(host.host_ema[k], v.numpy(), rtol=0, atol=1e-7)
-        assert not np.array_equal(host.host_ema[k], host.state.params[k].detach().numpy()) or v.numel() < 4
-
-
-def test_plateau_cuts_the_lr(corpus, tmp_path):
-    trainer = port_trainer(corpus, tmp_path / 'plateau', epochs=4, scheduler='plateau', lr=1e-12)
-    trainer.fit()
-    lrs = [r['lr'] for r in _rows(tmp_path / 'plateau') if 'lr' in r]
-    assert lrs == pytest.approx([1e-12, 1e-12, 1e-12, 1e-13], rel=1e-9)
-    assert trainer.state.opt_state.lr_scale == pytest.approx(0.1)
-    assert trainer.current_lr() == pytest.approx(1e-13)
 
 
 def test_no_validation_trains_every_epoch(corpus, tmp_path):

@@ -19,6 +19,7 @@ from wav2sleep_tpu.settings import COLS_TO_SAMPLES_PER_EPOCH
 from wav2sleep_tpu_torch import pipeline as tpipe
 
 from .test_torch_pipeline import model_pair  # noqa: F401 - a fixture
+from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SIGNALS = ('ECG', 'THX')
 S = 6  # epochs per night on the grid

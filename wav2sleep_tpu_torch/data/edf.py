@@ -8,8 +8,8 @@ the BROKEN-unit skip, and the per-channel normalization affine (voltages to
 mV, arbitrary units onto [-1, 1]). ``load_edf_arrays`` reads the
 channels of a night with its QC warnings (the inference API's EDF path),
 ``sample_seconds`` gives their sample times as the JAX package's datetime
-index holds them, ``get_edf_start`` reads the start time and ``write_edf``
-writes test and synthetic nights.
+index holds them, ``get_edf_start`` and ``get_edf_end`` read the start and
+end times and ``write_edf`` writes test and synthetic nights.
 """
 
 from __future__ import annotations
@@ -514,6 +514,12 @@ def sample_seconds(n: int, sampling_freq: float, convert_time: bool = False) -> 
 def get_edf_start(filepath: str) -> datetime.datetime:
     """The recording's start date and time, from its header."""
     return read_edf_header(filepath).start
+
+
+def get_edf_end(filepath: str) -> datetime.datetime:
+    """The recording's end: its start plus its records' duration."""
+    h = read_edf_header(filepath)
+    return h.start + datetime.timedelta(seconds=h.duration_seconds)
 
 
 def write_edf(

@@ -117,11 +117,12 @@ def _pandas_column(name: str | None, field_name: str, dtype: np.dtype) -> dict:
             'metadata': None}
 
 
-def write_frame(fp: str, frame: Frame) -> None:
+def write_frame(fp: str, frame: Frame, metadata: dict[bytes, bytes] | None = None) -> None:
     """Write ``frame`` as ``DataFrame.to_parquet`` writes the JAX package's
     frame: each column in its dtype with NaN as null, then the index as
     ``__index_level_0__`` (``timestamp[ns]`` for a datetime index, else
-    float64), and the ``pandas`` metadata that describes them."""
+    float64), and the ``pandas`` metadata that describes them, followed by
+    ``metadata``'s entries (ingest's ``signal_metadata``)."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -138,8 +139,16 @@ def write_frame(fp: str, frame: Frame) -> None:
         'creator': {'library': 'pyarrow', 'version': pa.__version__},
         'pandas_version': PANDAS_LAYOUT,
     }
-    table = pa.table(arrays).replace_schema_metadata({b'pandas': json.dumps(meta).encode('utf-8')})
-    pq.write_table(table, fp)
+    schema_metadata = {b'pandas': json.dumps(meta).encode('utf-8'), **(metadata or {})}
+    pq.write_table(pa.table(arrays).replace_schema_metadata(schema_metadata), fp)
+
+
+def schema_metadata(fp: str) -> dict[bytes, bytes]:
+    """The key-value metadata of a parquet file's schema (``pandas``,
+    ``signal_metadata``, ...), from its footer only."""
+    import pyarrow.parquet as pq
+
+    return dict(pq.read_schema(fp, memory_map=True).metadata or {})
 
 
 def _index_values(column) -> tuple[np.ndarray, bool]:

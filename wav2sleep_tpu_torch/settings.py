@@ -51,6 +51,10 @@ MROS = 'mros'
 WSC = 'wsc'
 CENSUS = 'census'  # census-balanced benchmark split (Jones et al.)
 
+KNOWN_DATASETS = [SHHS, MESA, CFS, CHAT, CCSHS, MROS, WSC, CENSUS]
+
+INGEST = 'ingest'  # per-dataset folder of ingested parquet before the split
+
 TRAIN, VAL, TEST = 'train', 'val', 'test'
 
 # Five-class sleep stages to integer labels, per number of classes; four
@@ -58,6 +62,12 @@ TRAIN, VAL, TEST = 'train', 'val', 'test'
 INTEGER_LABEL_MAPS = {
     4: {0: 0, 1: 1, 2: 1, 3: 2, 4: 3},
     5: {0: 0, 1: 1, 2: 2, 3: 3, 4: 4},
+}
+
+# Category names per number of classes (confusion plots).
+SLEEP_STAGE_CATEGORIES = {
+    4: ['Wake', 'N1+N2', 'N3', 'REM'],
+    5: ['Wake', 'N1', 'N2', 'N3', 'REM'],
 }
 
 # Label of unscored or ignored epochs.

@@ -92,8 +92,9 @@ class EarlyStopping:
 
 
 class MetricsLogger:
-    """JSON-lines metric log (``<log_dir>/metrics.jsonl``), and MLflow when
-    ``MLFLOW_TRACKING_URI`` is set and ``mlflow`` imports."""
+    """JSON-lines metric log (``<log_dir>/metrics.jsonl``), confusion-matrix
+    PNGs (best effort), and MLflow when ``MLFLOW_TRACKING_URI`` is set and
+    ``mlflow`` imports."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
@@ -113,7 +114,8 @@ class MetricsLogger:
             self._mlflow.log_metrics({k: float(v) for k, v in metrics.items()}, step=step)
 
     def log_confusion(self, cmat: np.ndarray, epoch: int, prefix: str) -> dict[str, float]:
-        """Accuracy and kappa of one confusion matrix, logged and returned."""
+        """Accuracy and kappa of one confusion matrix, logged (with its
+        figure, ``<prefix>_conf_mats/<epoch:04d>.png``) and returned."""
         return log_aux_metrics(cmat, epoch, prefix, artifact_dir=self.log_dir)
 
     def last_val_metrics(self) -> dict[str, float]:
