@@ -163,14 +163,16 @@ Phases (any failure raises, so the script exits non-zero):
    (``polysomnography/edfs``, ``annotations-events-nsrr``), session IDs from
    the port's ``mesa`` split lists (4 train, 2 val, 2 test), one train night
    with a flat PPG and one with sleep/wake-only labels; two WSC nights (a
-   ``.stg.txt`` with its ``.log.txt``, an ``.allscore.txt``); one CHAT night
+   ``.stg.txt`` with its ``.log.txt``, an ``.allscore.txt`` with EOG beside
+   the cardio channels at ``data.synth.RATES_EOG``); one CHAT night
    whose ECG header has a physical maximum of 0.0. (b) The command lines
    as a user runs them, each in its own process: ``preprocessing.fix_edfs``
    on CHAT, ``preprocessing.ingest`` on MESA at ``--max-parallel 1`` (timed
    only) and on each dataset at ``--max-parallel 4``, then
    ``preprocessing.create_splits`` on each: every night present, the
    sleep/wake-only night quarantined as ``.issues``, the flat PPG dropped,
-   the repaired CHAT ECG skipped, every stage in {-1, 0..3} after the
+   the repaired CHAT ECG skipped, every file's rows in time order (the EOG
+   night's finer grid too), every stage in {-1, 0..3} after the
    4-class map, every ``signal_metadata`` read back with the file's
    signals. (c) The trainer's ``main`` on the split MESA corpus: the
    flagship at full width in f32, one epoch at batch 4, K1 launched 160
@@ -1991,7 +1993,11 @@ def write_raw_corpus(raw: str, synth) -> dict:
     start = datetime.datetime(2002, 3, 1, 22, 0, 0)  # write_night_edf's start
     for sid in (ids['wsc_stg'], ids['wsc_allscore']):
         signals, stages = synth.synth_night(rng, TRAIN_HOURS)
-        synth.write_night_edf(os.path.join(wsc, f'{sid}.edf'), signals)
+        rates = None
+        if sid == ids['wsc_allscore']:  # EOG beside the cardio channels: a finer grid after coarser ones
+            eog, _ = synth.synth_night_eog(rng, TRAIN_HOURS)
+            signals, rates = {**signals, **eog}, {**synth.RATES, **synth.RATES_EOG}
+        synth.write_night_edf(os.path.join(wsc, f'{sid}.edf'), signals, rates)
         if sid == ids['wsc_stg']:
             with open(os.path.join(wsc, f'{sid}.stg.txt'), 'w') as f:
                 f.write('Epoch\tUser-Defined Stage\n' + ''.join(f'{i}\t{NSRR_CODES[s]}\n'
@@ -2033,10 +2039,11 @@ def run_cli(module: str, *argv: str) -> tuple[str, float]:
 
 def check_ingested(out: str, ids: dict) -> dict:
     """The ingested corpus against what phase 15 wrote: every night there,
-    the quarantine and the drops done, stages in {-1, 0..3} after the
-    4-class map, ``signal_metadata`` read back. Returns the counts."""
+    the quarantine and the drops done, the rows in time order, stages in
+    {-1, 0..3} after the 4-class map, ``signal_metadata`` read back.
+    Returns the counts."""
     from wav2sleep_tpu_torch.data.dataset import ParquetDataset
-    from wav2sleep_tpu_torch.data.parquet import get_parquet_cols
+    from wav2sleep_tpu_torch.data.parquet import get_parquet_cols, read_frame
     from wav2sleep_tpu_torch.data.preprocessing import TARGET_LABEL_INDEX
     from wav2sleep_tpu_torch.ingest import read_signal_metadata
 
@@ -2044,7 +2051,8 @@ def check_ingested(out: str, ids: dict) -> dict:
     want = {**{f'mesa/ingest/{sid}.parquet': SIGNALS for sid in mesa},
             f'mesa/ingest/{ids["sleep_wake"]}.issues.parquet': SIGNALS,
             f'mesa/ingest/{ids["flat_ppg"]}.parquet': ('ECG', 'ABD', 'THX'),
-            f'wsc/ingest/{ids["wsc_stg"]}.parquet': SIGNALS, f'wsc/ingest/{ids["wsc_allscore"]}.parquet': SIGNALS,
+            f'wsc/ingest/{ids["wsc_stg"]}.parquet': SIGNALS,
+            f'wsc/ingest/{ids["wsc_allscore"]}.parquet': (*SIGNALS, 'EOG-L', 'EOG-R'),
             f'chat/ingest/{ids["chat"]}.parquet': ('PPG', 'ABD', 'THX')}
     got = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs
                  if f.endswith('.parquet') and os.sep + 'ingest' in d)
@@ -2057,6 +2065,8 @@ def check_ingested(out: str, ids: dict) -> dict:
         if cols != [*signals, 'Stage'] or sorted(meta) != sorted(signals):
             raise AssertionError(f'ingest: {name} has columns {cols} and signal_metadata {sorted(meta)}, expected '
                                  f'{[*signals, "Stage"]}')
+        if not (np.diff(read_frame(fp, ['Stage']).index) > 0).all():
+            raise AssertionError(f'ingest: {name} has rows out of time order')
         _, y = ParquetDataset([fp], list(signals), num_classes=4)[0]
         if y.shape != TARGET_LABEL_INDEX.shape or not set(np.unique(y).tolist()) <= {-1, 0, 1, 2, 3}:
             raise AssertionError(f'ingest: {name} labels {y.shape} {np.unique(y)} outside -1, 0..3')

@@ -7,7 +7,8 @@ does not parse; WSC nights with ``.stg.txt`` and ``.allscore.txt``; a CHAT
 night with a physical maximum of 0.0, repaired by ``fix_edfs``) is ingested
 once by ``wav2sleep_tpu.ingest`` and by ``wav2sleep_tpu_torch.ingest`` (one
 process and two). Tolerance everywhere is exact: the same file names, the
-same frames (index, column order, values, NaN positions, dtypes), the same
+same frames (index, column order, values, NaN positions, dtypes; the port's
+rows are the JAX package's sorted by time, ROADMAP §C.19), the same
 ``pandas`` metadata columns and ``signal_metadata`` bytes, the same trees,
 bytes and printed lines of the command lines.
 """
@@ -174,10 +175,11 @@ def _schema_metadata(fp):
 @pytest.mark.parametrize('name', OUTPUTS)
 def test_ingest_frames_match_jax(corpus, name):
     """Exact: ``pd.read_parquet`` frames (index, column order, values with
-    NaN positions, dtypes), the ``pandas`` metadata's columns and the
+    NaN positions, dtypes; the JAX package's rows sorted by time, which is
+    their order in these nights), the ``pandas`` metadata's columns and the
     ``signal_metadata`` bytes, at one process and two."""
     _, outs, _ = corpus
-    expected = pd.read_parquet(os.path.join(outs['jax'], name))
+    expected = pd.read_parquet(os.path.join(outs['jax'], name)).sort_index(kind='stable')
     meta = _schema_metadata(os.path.join(outs['jax'], name))
     for run in ('port', 'port2') if not name.startswith('mesa') else ('port',):
         fp = os.path.join(outs[run], name)
@@ -205,8 +207,9 @@ def test_mixed_grids_keep_pandas_row_order(columns, monkeypatch, tmp_path):
     """Exact, on a cardio + EOG night at 0.05 h grids (the label grid and
     the resampling cut to match in both packages): ``pd.concat(axis=1)``
     puts the first signal's grid first and appends the points of later,
-    finer grids after it, out of time order; the port's frame has the same
-    row order, values and NaN positions (ROADMAP §C.19)."""
+    finer grids after it, out of time order; the port's frame holds the same
+    (time, row) pairs, values and NaN positions, in time order (ROADMAP
+    §C.19)."""
     from wav2sleep_tpu.data import preprocessing as jax_pre
     from wav2sleep_tpu_torch.data import preprocessing as pre
 
@@ -223,9 +226,44 @@ def test_mixed_grids_keep_pandas_row_order(columns, monkeypatch, tmp_path):
     _xml(xml_fp, (0, 1, 3))
     for mod in (jax_ingest, ingest):
         assert mod.process_night(edf_fp, xml_fp, str(tmp_path / mod.__name__ / 'n.parquet'), columns)
-    frames = [pd.read_parquet(tmp_path / mod.__name__ / 'n.parquet') for mod in (jax_ingest, ingest)]
-    pd.testing.assert_frame_equal(frames[1], frames[0], check_exact=True)
-    assert not frames[0].index.is_monotonic_increasing
+    want, got = (pd.read_parquet(tmp_path / mod.__name__ / 'n.parquet') for mod in (jax_ingest, ingest))
+    assert not want.index.is_monotonic_increasing
+    assert got.index.is_monotonic_increasing
+    pd.testing.assert_frame_equal(got, want.sort_index(kind='stable'), check_exact=True)
+
+
+def test_eog_beside_cardio_reads_in_time_order(tmp_path):
+    """Exact, on a ten-hour cardio + EOG night ingested at the default
+    columns (``EDF_COLS``: the cardio channels, then the finer EOG grid):
+    each package's ``ParquetDataset`` reads from the port's file the EOG
+    resampled onto its grid in time order and z-scored, and the cardio
+    channels as they read from a cardio-only ingest of the same night."""
+    from wav2sleep_tpu_torch.data.edf import load_edf_arrays
+    from wav2sleep_tpu_torch.data.preprocessing import EDF_COLS, interp_to_grid, signal_target_grid
+
+    edf_fp, xml_fp = str(tmp_path / 'n.edf'), str(tmp_path / 'n-nsrr.xml')
+    _edf(edf_fp, 200, np.random.default_rng(3), eog=True)
+    _xml(xml_fp, (0, 1, 3))
+    for name, columns in (('mixed', EDF_COLS), ('cardio', CARDIO)):
+        assert ingest.process_night(edf_fp, xml_fp, str(tmp_path / name / 'n.parquet'), columns)
+    arrays, _, _ = load_edf_arrays(edf_fp, columns=['EOG-L', 'EOG-R'])
+    eog = {}
+    for col, (sig, fs) in arrays.items():
+        grid = signal_target_grid(col, 10.0)
+        eog[col] = interp_to_grid(np.arange(len(sig)) / fs, sig, grid, interior_only=True,
+                                  fill_value=0.0).astype(np.float32)
+    mixed = str(tmp_path / 'mixed' / 'n.parquet')
+    for mod in (dataset, jax_dataset):
+        want = mod.zscore_normalize(eog)
+        x, y = mod.ParquetDataset([mixed], ['EOG-L', 'EOG-R'])[0]
+        for col in want:
+            np.testing.assert_array_equal(x[col], want[col])
+        xc, yc = mod.ParquetDataset([str(tmp_path / 'cardio' / 'n.parquet')], CARDIO)[0]
+        xm, ym = mod.ParquetDataset([mixed], CARDIO)[0]
+        for col in CARDIO:
+            np.testing.assert_array_equal(xm[col], xc[col])
+        np.testing.assert_array_equal(y, yc)
+        np.testing.assert_array_equal(ym, yc)
 
 
 def test_api_frames_keep_time_order_where_jax_does_not():
@@ -279,7 +317,9 @@ def test_get_edf_path_matches_jax(corpus, session, dataset):
 
 def test_each_package_reads_the_others_ingest(corpus):
     """Exact: each ``ParquetDataset`` gives bit-equal items from the other
-    package's files as from its own package's."""
+    package's files as from its own package's (nights whose JAX rows are in
+    time order; ``test_eog_beside_cardio_reads_in_time_order`` reads the
+    others)."""
     _, outs, _ = corpus
     names = [n for n in OUTPUTS if 'issues' not in n and 'chat' not in n and '0001' not in n]
     for cols, names in ((CARDIO, names), (['EOG-L', 'EOG-R'], [OUTPUTS[2]])):
@@ -295,16 +335,12 @@ def test_each_package_reads_the_others_ingest(corpus):
                 np.testing.assert_array_equal(ya, yb)
 
 
-@pytest.mark.parametrize('use_threads', [False, True])
-def test_parallelise_ordered_and_bounded(use_threads):
-    """Exact: ordered results, and ``return_dict``, over processes (spawn;
-    a function of a light module, which each worker imports) and threads."""
+def test_parallelise_ordered_and_bounded():
+    """Exact: ordered results over spawned processes (a function of a light
+    module, which each worker imports), more items than processes."""
     import math
 
-    assert parallelise(math.factorial, range(12), max_parallel=3, use_threads=use_threads) == [
-        math.factorial(i) for i in range(12)]
-    assert parallelise(math.factorial, [1, 2, 3], max_parallel=2, return_dict=True, use_threads=use_threads) == {
-        1: 1, 2: 2, 3: 6}
+    assert parallelise(math.factorial, range(12), max_parallel=3) == [math.factorial(i) for i in range(12)]
 
 
 @pytest.mark.parametrize('count', [1, 2, 3, 7])

@@ -5,7 +5,14 @@ and batch, each JAX step from the port's state, and the eval step
 of ``tests/test_torch_train_families.py`` on this module's trajectory);
 remat on against off; step 1's gradient against the f64 one. Split from
 ``tests/test_torch_train_families.py`` so that the test run spreads files
-over its workers."""
+over its workers.
+
+The module runs torch on ``GATE_THREADS`` intra-op threads, the count its
+step-2 gradient-norm gate was set at: the f32 sums of batch norm's backward
+split by thread, and SleepPPG-Net's step-2 gradient norm parts from JAX's by
+8.14e-4 at 8 threads and 1.92e-3 at one, against the gate's 1e-3. A fixed
+count gives the same sums on any machine, whatever its cores or
+``OMP_NUM_THREADS``."""
 
 import pytest
 import torch
@@ -19,6 +26,17 @@ from .test_torch_families import model_pair
 # The two trajectory tests are collected here too, on this module's `trajectory`.
 from .test_torch_train_families import (KINDS, _as_torch, _batch, _t, _x0, check_remat, run_trajectory,  # noqa: F401
                                         test_eval_step_reads_the_running_statistics, test_steps_track_jax)
+
+
+GATE_THREADS = 8
+
+
+@pytest.fixture(autouse=True, scope='module')
+def gate_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(GATE_THREADS)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module', params=['ppgnet'])

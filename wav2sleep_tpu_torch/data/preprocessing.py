@@ -128,16 +128,14 @@ def _take_scratch(n: int) -> np.ndarray:
 
 
 def resample_to_frame(
-    series: dict[str, tuple[np.ndarray, np.ndarray]], columns: list[str], max_length_hours: float,
-    concat_order: bool = False,
+    series: dict[str, tuple[np.ndarray, np.ndarray]], columns: list[str], max_length_hours: float
 ) -> Frame:
     """Each of ``columns`` found in ``series`` (``{col: (t_seconds,
     values)}``) interpolated onto its grid (interior only, 0.0 outside), as
     float32 columns over the union of their grids, NaN where a signal's grid
-    has no point. The rows are in time order, or with ``concat_order`` in
-    ``pd.concat(axis=1)``'s (``union_in_order``), which ingest keeps for its
-    files to be the JAX package's. Raises ``ValueError`` when none is
-    found."""
+    has no point, the rows in time order (the JAX package's ``pd.concat(
+    axis=1)`` rows sorted by time: ROADMAP §C.19). Raises ``ValueError``
+    when none is found."""
     resampled, grids = {}, {}
     for col in columns:
         if col not in series:
@@ -147,32 +145,13 @@ def resample_to_frame(
         resampled[col] = interp_to_grid(t, values, grids[col], interior_only=True, fill_value=0.0).astype(np.float32)
     if not resampled:
         raise ValueError(f'None of {columns} present in signals {list(series)}')
-    index = functools.reduce(union_in_order if concat_order else np.union1d, grids.values())
+    index = functools.reduce(np.union1d, grids.values())
     out = Frame(index)
     for col, values in resampled.items():
         full = np.full(len(index), np.nan, np.float32)
-        full[positions(index, grids[col])] = values
+        full[np.searchsorted(index, grids[col])] = values
         out.columns[col] = full
     return out
-
-
-def union_in_order(index: np.ndarray, other: np.ndarray) -> np.ndarray:
-    """``index`` followed by the values of ``other`` it lacks, in their
-    order: pandas' ``Index.union(other, sort=False)``, which ``pd.concat(
-    axis=1)`` takes. The result is sorted only when each grid's new points
-    come after the ones before (a grid nested in an earlier one, say): a
-    coarser grid before a finer one leaves the finer one's other points
-    after it, out of time order (ROADMAP §C.19)."""
-    if len(index) == len(other) and (index == other).all():
-        return index
-    return np.concatenate([index, other[~np.isin(other, index)]])
-
-
-def positions(index: np.ndarray, values: np.ndarray) -> np.ndarray:
-    """Where each of ``values`` (all in ``index``, which has no repeats) is
-    in ``index``."""
-    order = np.argsort(index, kind='stable')
-    return order[np.searchsorted(index[order], values)]
 
 
 def process_waveform_arrays(
@@ -180,7 +159,6 @@ def process_waveform_arrays(
     columns: list[str],
     max_length_hours: float = TRAINING_LENGTH_HOURS,
     start: datetime.datetime | None = None,
-    concat_order: bool = False,
 ) -> Frame:
     """``load_edf_arrays``' ``{col: (values, fs)}`` resampled onto the
     model grids (``resample_to_frame``), each signal's samples at
@@ -188,11 +166,10 @@ def process_waveform_arrays(
     With ``start`` it is the inference API's EDF path instead (the JAX
     package's ``load_edf_data(convert_time=True)`` then
     ``process_waveform_dataframe``): the sample times as its datetime index
-    rounds them (``edf.sample_seconds``), and the index ``start`` + grid.
-    ``concat_order``: the rows in ``pd.concat``'s order (``resample_to_frame``)."""
+    rounds them (``edf.sample_seconds``), and the index ``start`` + grid."""
     series = {col: (sample_seconds(len(sig), fs, convert_time=start is not None), sig)
               for col, (sig, fs) in arrays.items()}
-    out = resample_to_frame(series, columns, max_length_hours, concat_order=concat_order)
+    out = resample_to_frame(series, columns, max_length_hours)
     if start is not None:
         out = Frame(datetime_to_ns(start) + seconds_to_ns(out.index), out.columns, datetime=True)
     return out

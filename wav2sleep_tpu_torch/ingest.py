@@ -6,8 +6,11 @@ with unscored epochs as -1; nights without N1, N3 or REM, or whose ECG/EOG
 unit is not a known voltage unit, are quarantined as ``.issues.parquet``; a
 flat PPG is dropped; the signals are resampled onto the model grids and
 written with the per-signal metadata in the schema (``signal_metadata``).
-The files are those the JAX package writes: the same frame, the same
-``pandas`` metadata, read by either package.
+The files hold the JAX package's frame (the same columns, values and
+``pandas`` metadata) with its rows in time order: the JAX package writes the
+points of a finer grid after those of a coarser one that comes before it,
+and its dataset then reads that signal out of order (ROADMAP §C.19). Either
+package reads these files.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 from .data.edf import INV_ALT_UNIT_NAMES, VOLTAGE_SIGNALS, load_edf_arrays
 from .data.frame import Frame
 from .data.parquet import schema_metadata, write_frame
-from .data.preprocessing import EDF_COLS, TARGET_LABEL_INDEX, positions, process_waveform_arrays, union_in_order
+from .data.preprocessing import EDF_COLS, TARGET_LABEL_INDEX, process_waveform_arrays
 from .data.txt import parse_txt_annotations
 from .data.xml import parse_xml_annotations
 from .settings import CCSHS, CFS, CHAT, INGEST, LABEL, MESA, MROS, PPG, SHHS, WSC
@@ -82,17 +85,18 @@ def _labels_on_grid(seconds: np.ndarray, stages: np.ndarray) -> np.ndarray:
 
 
 def _join_labels(waveform: Frame, labels: np.ndarray) -> Frame:
-    """``pd.concat([waveform, labels], axis=1)``: the columns over the union
-    of the two indexes in its order, NaN where a column has no value,
-    ``Stage`` last."""
-    index = union_in_order(waveform.index, TARGET_LABEL_INDEX)
+    """``pd.concat([waveform, labels], axis=1)`` in time order: the columns
+    over the sorted union of the two indexes, NaN where a column has no
+    value, ``Stage`` last."""
+    index = np.union1d(waveform.index, TARGET_LABEL_INDEX)
     out = Frame(index)
+    rows = np.searchsorted(index, waveform.index)
     for name, values in waveform.columns.items():
         col = np.full(len(index), np.nan, values.dtype)
-        col[: len(values)] = values  # the waveform's rows come first
+        col[rows] = values
         out.columns[name] = col
     stage = np.full(len(index), np.nan)
-    stage[positions(index, TARGET_LABEL_INDEX)] = labels
+    stage[np.searchsorted(index, TARGET_LABEL_INDEX)] = labels
     out.columns[LABEL] = stage
     return out
 
@@ -147,9 +151,7 @@ def process_night(
         output_fp = quarantine_fp  # a night failing both checks stays '.issues.parquet'
     arrays, signal_metadata, _dropped = check_and_drop_flat_arrays(arrays, signal_metadata)
 
-    # The JAX package's row order, whatever it is (ROADMAP §C.19), so that
-    # each package reads the other's files as its own.
-    frame = process_waveform_arrays(arrays, columns=columns, concat_order=True)
+    frame = process_waveform_arrays(arrays, columns=columns)
     if labels is not None:
         frame = _join_labels(frame, labels)
     write_frame(output_fp, frame, metadata={SIGNAL_METADATA: json.dumps(signal_metadata).encode('utf-8')})
@@ -243,7 +245,7 @@ def process_files(
 
     proc = functools.partial(_safe_process_night, columns=columns, overwrite=overwrite)
     if max_parallel > 1:
-        converted = sum(parallelise(proc, work, use_tqdm=True, max_parallel=max_parallel))
+        converted = sum(parallelise(proc, work, max_parallel=max_parallel))
     else:
         converted = sum(proc(arg) for arg in work)
     logger.info(f'Converted {converted} files.')

@@ -2,10 +2,10 @@
 
 The port's copy of ``wav2sleep_tpu/parallel/map.py``. ``parallelise`` is an
 order-preserving parallel map with a bounded number of tasks in flight, over
-processes or threads. The processes start by ``spawn``: a caller that holds
-CUDA or threads (a trainer, ``chip_smoke.py``) must not ``fork``, and a
-spawned worker imports the function anew, so it has to be a module-level
-function (or a ``functools.partial`` of one). ``shard_across_hosts`` splits
+processes. They start by ``spawn``: a caller that holds CUDA or threads (a
+trainer, ``chip_smoke.py``) must not ``fork``, and a spawned worker imports
+the function anew, so it has to be a module-level function (or a
+``functools.partial`` of one). ``shard_across_hosts`` splits
 a work list across the processes of a ``torch.distributed`` group.
 """
 
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import logging
 import multiprocessing
-from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, ThreadPoolExecutor, wait
-from typing import Callable, Iterable, TypeVar, Union
+from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
+from typing import Callable, Iterable, TypeVar
 
 logger = logging.getLogger(__name__)
 
@@ -24,42 +24,27 @@ Y = TypeVar('Y')
 START_METHOD = 'spawn'
 
 
-def parallelise(
-    func: Callable[[X], Y],
-    iterator: Iterable[X],
-    max_parallel: int = 10,
-    use_tqdm: bool = False,
-    return_dict: bool = False,
-    use_threads: bool = False,
-) -> Union[list[Y], dict[X, Y]]:
-    """Parallel map with bounded in-flight tasks and ordered results.
+def parallelise(func: Callable[[X], Y], iterator: Iterable[X], max_parallel: int = 10) -> list[Y]:
+    """Parallel map over ``spawn`` processes with bounded in-flight tasks and
+    ordered results, with a progress bar when ``tqdm`` imports.
 
     Args:
         func: single-argument, module-level function (``functools.partial``
             for extra arguments).
         iterator: arguments.
         max_parallel: maximum concurrent tasks (each task gets one process).
-        use_tqdm: progress bar, when ``tqdm`` imports.
-        return_dict: map input -> result instead of an ordered list.
-        use_threads: threads instead of processes (for GIL-releasing IO work
-            or functions that do not pickle).
     """
     items = list(iterator)
-    progress = None
-    if use_tqdm:
-        try:
-            from tqdm import tqdm
+    try:
+        from tqdm import tqdm
 
-            progress = tqdm(total=len(items))
-        except ImportError:
-            pass
+        progress = tqdm(total=len(items))
+    except ImportError:
+        progress = None
 
-    if use_threads:
-        pool = ThreadPoolExecutor(max_workers=max_parallel)
-    else:
-        pool = ProcessPoolExecutor(max_workers=max_parallel, mp_context=multiprocessing.get_context(START_METHOD))
     results: list = [None] * len(items)
-    with pool:
+    context = multiprocessing.get_context(START_METHOD)
+    with ProcessPoolExecutor(max_workers=max_parallel, mp_context=context) as pool:
         pending = {}
         it = iter(enumerate(items))
         exhausted = False
@@ -81,8 +66,6 @@ def parallelise(
                     progress.update(1)
     if progress:
         progress.close()
-    if return_dict:
-        return dict(zip(items, results))
     return results
 
 
