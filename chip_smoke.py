@@ -179,11 +179,31 @@ Phases (any failure raises, so the script exits non-zero):
    times a training micro-step, every loss finite. (d) The predict CLI's
    ``main`` on the test split with the exported model: kappa and accuracy.
    Prints an ``ingest`` JSON line.
+16. Parallel: the multi-card paths (``parallel.mesh``) on the one card. (a)
+   Two ranks spawned over ``gloo`` on cuda:0 (NCCL refuses two ranks on one
+   device), each building K1 at once into an empty folder (one library
+   must result): the full-width flagship in f32 (remat, masker and flip on,
+   mixer dropout 0, since dropout draws per rank) at a global batch of 8 (4
+   a rank, each reading its rows through the data module) from phase 13's
+   corpus, 2 micro-steps. Step 1's loss, gradient norm and per-parameter
+   gradients against one process on the same global batch (``TRAIN_TOL``
+   relative); both ranks' parameters bit-equal after each micro-step; K1
+   160 times a micro-step on each rank. (b) ``python -m
+   wav2sleep_tpu_torch.train`` under torchrun's environment at world size
+   1 (NCCL), one epoch of phase 13's corpus: every loss finite, and the
+   NCCL ``all_reduce`` reached (calls counted). (c) ``StreamingPipelineQ16``
+   in bf16 at batch 8 over ``devices=['cuda:0', 'cuda:0']`` (a replica
+   each, 4 rows each) on phase 8's 16 EDF nights, 2 passes: the hypnograms
+   equal phase 9's one-replica q16 pass exactly, K1 80 times a replica
+   forward, recordings/hour. (d) ``serve.main --data-parallel 1`` writes
+   phase 9's CSV bytes; ``--data-parallel 2`` raises on a one-card machine.
+   Prints a ``parallel`` JSON line. True multi-card runs and NCCL beyond
+   world size 1 are not exercised.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train``, ``families``, ``trainer``, ``api`` and
-``ingest`` lines come before the ``kernels`` line; the line before the last
+before it runs. The ``train``, ``families``, ``trainer``, ``api``, ``ingest`` and
+``parallel`` lines come before the ``kernels`` line; the line before the last
 is a JSON object describing the kernels (K1's and K2's entries also carry
 ``train_launches``, per training step, K1's ``trainer_launches`` and
 ``ingest_launches``, per training micro-step of phases 13 and 15, and
@@ -980,7 +1000,7 @@ def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
                                                           preds['q16', precision, fp]) for fp in fps])
         log(f'serve cli: q4 against q16, both --precision {precision}: epochs equal {agree:.5f}')
     q4_witness(torch, pipeline, fps, card)
-    return launches
+    return launches, hyps['q16']
 
 
 # Phase 10's shape: scripts/profile_pallas_variants.py's, K1's hot shape
@@ -2171,6 +2191,253 @@ def phase_ingest(torch, k1, k3, card, work):
     return line, micro[0][1]
 
 
+# Phase 16: the multi-card paths, on the one card. Two ranks share cuda:0
+# over gloo (NCCL refuses two ranks on one device); one rank runs NCCL.
+PARALLEL_RANKS = 2
+PARALLEL_BATCH = 8  # the global batch of (a), 4 a rank
+PARALLEL_STEPS = 2  # micro-steps of (a)
+PARALLEL_TIMEOUT = 600  # seconds, the group's collectives and the launch
+
+
+def _parallel_steps(corpus: str, n_steps: int, mesh, hours: float = TRAIN_HOURS, device: str = 'cuda') -> dict:
+    """``n_steps`` f32 training micro-steps of the full-width flagship (remat,
+    masker and flip on, mixer dropout 0) on phase 13's corpus, through the
+    data module, over ``mesh``'s group (this rank's rows) or on one process
+    (the global batch): each step's loss, gradient norm, K1 launches and a
+    hash of the parameters after it, and step 1's gradients."""
+    import hashlib
+
+    import torch
+
+    from wav2sleep_tpu_torch import train_bench
+    from wav2sleep_tpu_torch.models import wav2sleep
+    from wav2sleep_tpu_torch.ops import conv_k3 as k1
+    from wav2sleep_tpu_torch.train.datamodule import SleepDataModule
+    from wav2sleep_tpu_torch.train.masker import SignalMasker
+    from wav2sleep_tpu_torch.train.scheduler import exp_warmup_schedule
+    from wav2sleep_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    device = mesh.device if mesh is not None else torch.device(device)
+    dm = SleepDataModule(columns=list(TRAINER_SPE), data_location=corpus, train_datasets=['mesa', 'shhs'],
+                         batch_size=PARALLEL_BATCH, num_workers=2, max_length_hours=hours, device=device,
+                         mesh=mesh)
+    cfg = wav2sleep.flagship_config()
+    cfg['encoders']['remat'] = True
+    cfg['epoch_mixer']['dropout'] = cfg['sequence_mixer']['dropout'] = 0.0
+    model = wav2sleep.build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    opt = make_optimizer(exp_warmup_schedule(1e-3, 2000, 10000), weight_decay=1e-4, grad_clip=1.0)
+    seen = []
+    update = opt.update
+    opt.update = lambda grads, state, params: seen.append([g.detach().cpu().numpy() for g in grads]) or update(
+        grads, state, params)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, 4, masker=SignalMasker(train_bench.DROPOUTS, train_bench.BACKUPS),
+                           flip_polarity=True, mesh=mesh)
+    out = {'steps': [], 'rows': None}
+    for i, (x, y) in zip(range(n_steps), dm.train_loader(0)):
+        batch = ({k: torch.from_numpy(v).to(device) for k, v in x.items()}, torch.from_numpy(y).to(device))
+        k1.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, m = step(state, batch, TRAIN_SEED)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for p in state.params.values():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out['steps'].append(dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']), k1=k1.LAUNCHES,
+                                 s=time.perf_counter() - t0, params_sha256=digest.hexdigest()))
+        out['rows'] = int(y.shape[0])
+    out['grads'] = dict(zip(state.params, seen[0]))
+    return out
+
+
+def parallel_train_rank(corpus: str, build_dir: str, hours: float = TRAIN_HOURS) -> dict:
+    """A rank of phase 16 (a), in a process of its own (``parallel.mesh.spawn``
+    formed the group): K1 built into ``build_dir``, empty, so every rank
+    builds it at once; then ``_parallel_steps`` over the group."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from wav2sleep_tpu_torch.ops import cuda_build
+    from wav2sleep_tpu_torch.parallel import mesh as pmesh
+
+    cuda_build.BUILD_DIR = Path(build_dir)
+    out = _parallel_steps(corpus, PARALLEL_STEPS, pmesh.make_mesh(), hours)
+    out['backend'] = dist.get_backend()
+    if dist.get_rank():
+        del out['grads']  # rank 0's are the group's: the gradients are all-reduced
+    return out
+
+
+# The train CLI under torchrun's environment at world size 1, with every
+# torch.distributed.all_reduce call counted and the group's backend printed
+# when the process ends.
+NCCL_RUNNER = '''
+import atexit, runpy, sys
+import torch.distributed as dist
+calls, backend, reduce = [0], [None], dist.all_reduce
+def counted(*args, **kwargs):
+    calls[0] += 1
+    backend[0] = dist.get_backend()
+    return reduce(*args, **kwargs)
+dist.all_reduce = counted
+atexit.register(lambda: print('ALL_REDUCE', calls[0], backend[0], flush=True))
+sys.argv = ['wav2sleep_tpu_torch.train', *sys.argv[1:]]
+runpy.run_module('wav2sleep_tpu_torch.train', run_name='__main__', alter_sys=True)
+'''
+
+
+def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
+    """Phase 16: (a) two gloo ranks on cuda:0 against one process, (b) the
+    train CLI over NCCL at world size 1, (c) q16 serving over two replicas
+    on cuda:0 against phase 9's one, (d) the serving CLI's
+    ``--data-parallel``. Returns the ``parallel`` line."""
+    import subprocess
+
+    from wav2sleep_tpu_torch import api, serve
+    from wav2sleep_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.time()
+    corpus = os.path.join(work, 'corpus')  # phase 13's
+    n_epochs = int(round(HOURS * 120))
+
+    # (a) Two ranks over gloo on cuda:0, each building K1 into an empty
+    # folder at once, against one process on the global batch.
+    build_dir = os.path.join(work, 'parallel_kernels')
+    os.makedirs(build_dir)
+    t0 = time.time()
+    ranks = pmesh.spawn(parallel_train_rank, ['cuda:0'] * PARALLEL_RANKS, args=(corpus, build_dir),
+                        timeout=PARALLEL_TIMEOUT, deadline=PARALLEL_TIMEOUT)
+    spawn_s = time.time() - t0
+    built = sorted(os.listdir(build_dir))
+    libs = [n for n in built if n.startswith('libconv_k3_') and n.endswith('.so')]
+    if len(libs) != 1 or any(n.endswith('.tmp') for n in built):
+        raise AssertionError(f'parallel: the ranks\' concurrent K1 builds left {built}, expected one library')
+    one = _parallel_steps(corpus, 1, None)
+    r0, r1 = ranks
+    if {r0['backend'], r1['backend']} != {'gloo'} or {r0['rows'], r1['rows']} != {PARALLEL_BATCH // PARALLEL_RANKS}:
+        raise AssertionError(f'parallel: backends {r0["backend"]}, {r1["backend"]}, rows {r0["rows"]}, {r1["rows"]}')
+    for i, (a, b) in enumerate(zip(r0['steps'], r1['steps'])):
+        if a['params_sha256'] != b['params_sha256'] or (a['loss'], a['grad_norm']) != (b['loss'], b['grad_norm']):
+            raise AssertionError(f'parallel: the ranks\' parameters or metrics differ after micro-step {i + 1}')
+        if a['k1'] != 160 or b['k1'] != 160:
+            raise AssertionError(f'parallel: K1 launches in micro-step {i + 1}: {a["k1"]}, {b["k1"]}; expected 160 a rank')
+    want = one['steps'][0]
+    got = r0['steps'][0]
+    rel = {key: abs(got[key] - want[key]) / abs(want[key]) for key in ('loss', 'grad_norm')}
+    rel['gradients'] = max(float(np.abs(r0['grads'][k] - g).max() / max(np.abs(g).max(), 1e-30))
+                           for k, g in one['grads'].items())
+    log(f'parallel (a): {PARALLEL_RANKS} ranks over gloo on cuda:0, f32 flagship, global batch {PARALLEL_BATCH} '
+        f'({r0["rows"]} a rank) x {TRAIN_HOURS:g} h, {PARALLEL_STEPS} micro-steps in {spawn_s:.1f} s (spawn, both '
+        f'ranks building K1 at once: {libs[0]}); step 1 against one process: relative loss {rel["loss"]:.3e}, '
+        f'gradient norm {rel["grad_norm"]:.3e}, per-parameter gradients {rel["gradients"]:.3e} (bound '
+        f'{TRAIN_TOL:g}); parameters bit-equal across ranks after each micro-step; K1 160 a micro-step a rank; '
+        f'micro-step seconds {[round(s["s"], 3) for s in r0["steps"]]} (rank 0), one process {want["s"]:.3f} s, '
+        f'on {card}')
+    if not max(rel.values()) <= TRAIN_TOL:
+        raise AssertionError(f'parallel: two ranks\' step 1 disagrees with one process: {rel}')
+
+    # (b) python -m wav2sleep_tpu_torch.train under torchrun's environment
+    # at world size 1: one rank over NCCL, one epoch.
+    run = os.path.join(work, 'nccl_run')
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''), RANK='0', LOCAL_RANK='0',
+               WORLD_SIZE='1', LOCAL_WORLD_SIZE='1', MASTER_ADDR='localhost', MASTER_PORT=str(pmesh.free_port()))
+    args = [*TRAINER_OVERRIDES, f'max_length_hours={TRAIN_HOURS:g}', f'data_location={corpus}', f'run_dir={run}',
+            'epochs=1']
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, '-c', NCCL_RUNNER, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=PARALLEL_TIMEOUT)
+    nccl_s = time.time() - t0
+    if proc.returncode:
+        raise AssertionError(f'parallel (b): the train CLI under torchrun\'s environment exited {proc.returncode}: '
+                             f'{proc.stderr[-3000:]}')
+    reduced = re.search(r'^ALL_REDUCE (\d+) (\S+)$', proc.stdout, re.M)
+    rows = _jsonl(os.path.join(run, 'metrics.jsonl'))
+    losses = [v for r in rows for k, v in r.items() if 'loss' in k]
+    if not reduced or int(reduced.group(1)) == 0 or reduced.group(2) != 'nccl' \
+            or 'torch.distributed backend nccl on cuda:0' not in proc.stdout:
+        raise AssertionError(f'parallel (b): no NCCL all_reduce was reached: {proc.stdout[-2000:]}')
+    if not losses or not all(np.isfinite(v) for v in losses) or not os.path.exists(os.path.join(run, 'final_metrics.json')):
+        raise AssertionError(f'parallel (b): losses {losses}')
+    log(f'parallel (b): python -m wav2sleep_tpu_torch.train at world size 1 over NCCL, one epoch in {nccl_s:.1f} s '
+        f'(process start included): {reduced.group(1)} all_reduce calls on the nccl group, {len(losses)} losses, all '
+        f'finite')
+
+    # (c) q16 serving over two replicas on cuda:0 (phase 9's folder and
+    # nights), against one replica at a replica's batch (the same shapes a
+    # forward), and beside phase 9's one replica at batch 8.
+    model = api.load_model(os.path.join(work, 'checkpoint'), precision='bfloat16')
+    half = BATCH // PARALLEL_RANKS
+    single = pipeline.StreamingPipelineQ16(model, list(SIGNALS), batch_size=half, max_length_hours=HOURS,
+                                           precision='bfloat16')
+    single.warmup()
+    same_shapes = dict(single.run(fps))
+    del single
+    pipe = pipeline.StreamingPipelineQ16(model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS,
+                                         precision='bfloat16', devices=['cuda:0'] * PARALLEL_RANKS)
+    pipe.warmup()
+    passes, batches = 2, -(-NIGHTS // BATCH)
+    zero_counts(k1, k3)
+    walls, out = timed_passes(torch, pipe, fps, passes)
+    served = counts(k1, k3)
+    check_hypnograms(out, fps, n_epochs, 'parallel (c)')
+    if served != {'K1': 80 * PARALLEL_RANKS * passes * batches, 'K2': 0, 'K3': 0}:
+        raise AssertionError(f'parallel (c): launches {served}, expected 80 K1 a replica forward')
+    differ = {os.path.basename(fp): int((hyp != same_shapes[fp]).sum()) for fp, hyp in out
+              if not np.array_equal(hyp, same_shapes[fp])}
+    agree_b8 = float(np.mean(np.concatenate([hyp == q16_hyps[fp] for fp, hyp in out])))
+    agree_b4 = float(np.mean(np.concatenate([same_shapes[fp] == q16_hyps[fp] for fp in fps])))
+    rate = 3600 * passes * NIGHTS / sum(walls)
+    log(f'parallel (c): StreamingPipelineQ16 bf16 batch {BATCH} over {PARALLEL_RANKS} replicas on cuda:0 ({half} rows '
+        f'each): {passes} passes of {NIGHTS} EDF nights in {", ".join(f"{w:.3f}" for w in walls)} s, {rate:.0f} '
+        f'recordings/hour on {card}; launches {served} (80 K1 a replica forward); epochs differing from one replica at '
+        f'batch {half}: {differ or 0}; epochs equal to phase 9\'s one replica at batch {BATCH}: {agree_b8:.5f}, and '
+        f'one replica at batch {half} against it {agree_b4:.5f} (the forward\'s bf16 rounding depends on the batch)')
+    if differ:
+        raise AssertionError(f'parallel (c): two replicas differ from one replica at the same batch a forward: {differ}')
+    del pipe, model
+
+    # (d) The serving CLI: --data-parallel 1 writes phase 9's bytes; 2 raises
+    # on a machine with one card.
+    out_dir = os.path.join(work, 'preds_dp1')
+    t0 = time.time()
+    serve.main(['--input-folder', os.path.dirname(fps[0]), '--output-folder', out_dir, '--model-folder',
+                os.path.join(work, 'checkpoint'), '--batch-size', str(BATCH), '--max-length-hours', str(HOURS),
+                '--data-parallel', '1'])
+    cli_s = time.time() - t0
+    names = sorted(os.listdir(os.path.join(work, 'preds')))
+    same = [n for n in names if open(os.path.join(out_dir, n), 'rb').read() == open(os.path.join(work, 'preds', n),
+                                                                                     'rb').read()]
+    if len(names) != NIGHTS or same != names:
+        raise AssertionError(f'parallel (d): --data-parallel 1 wrote {len(same)} of {len(names)} files as phase 9')
+    refused = None
+    if torch.cuda.device_count() == 1:
+        try:
+            serve.main(['--input-folder', os.path.dirname(fps[0]), '--output-folder', os.path.join(work, 'dp2'),
+                        '--model-folder', os.path.join(work, 'checkpoint'), '--data-parallel', '2'])
+        except ValueError as e:
+            refused = str(e)
+        if refused is None:
+            raise AssertionError('parallel (d): --data-parallel 2 ran on a machine with one card')
+    log(f'parallel (d): serve --data-parallel 1 wrote phase 9\'s {NIGHTS} CSV files byte for byte in {cli_s:.1f} s; '
+        f'--data-parallel 2 on {torch.cuda.device_count()} card: {refused!r}')
+    line = dict(
+        card=card, ranks=PARALLEL_RANKS, global_batch=PARALLEL_BATCH, hours=TRAIN_HOURS,
+        train=dict(backend='gloo', spawn_s=spawn_s, micro_step_s=[s['s'] for s in r0['steps']],
+                   one_process_step_s=want['s'], step1_rel_diff=rel, k1_launches_per_micro_step_per_rank=160,
+                   loss=[s['loss'] for s in r0['steps']], grad_norm=[s['grad_norm'] for s in r0['steps']]),
+        nccl=dict(world_size=1, seconds=nccl_s, all_reduce_calls=int(reduced.group(1)), losses=len(losses)),
+        serve=dict(replicas=PARALLEL_RANKS, batch=BATCH, walls_s=walls, recordings_per_hour=rate,
+                   k1_launches_per_replica_forward=80, equal_to_one_replica_at_batch=half,
+                   agree_with_one_replica_at_batch_8=agree_b8, one_replica_batch_4_agree_with_batch_8=agree_b4),
+        cli=dict(data_parallel_1_bytes_equal=True, seconds=cli_s, data_parallel_2=refused),
+        phase_s=time.time() - t_phase,
+    )
+    log(f'parallel: phase 16 took {line["phase_s"]:.1f} s')
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2213,7 +2480,7 @@ def main() -> int:
         log(f'serve: wrote {NIGHTS} EDF nights of {HOURS:g} h ({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) '
             f'with write_edf in {time.time() - t0:.1f} s (set-up)')
         main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
-        phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
+        _, q16_hyps = phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
         with torch.inference_mode():
             variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
         train_line, k1_train, k2_train = phase_train(torch, k1, k3, bd, layers, train_bench, q8, tf32_defaults)
@@ -2225,6 +2492,8 @@ def main() -> int:
         api_line, k1_api = phase_api(torch, k1, k3, layers, card, fps, out_z, work)
         torch.cuda.empty_cache()
         ingest_line, k1_ingest = phase_ingest(torch, k1, k3, card, work)
+        torch.cuda.empty_cache()
+        parallel_line = phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -2261,6 +2530,7 @@ def main() -> int:
     print(json.dumps({'trainer': trainer_line}))
     print(json.dumps({'api': api_line}))
     print(json.dumps({'ingest': ingest_line}))
+    print(json.dumps({'parallel': parallel_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

@@ -359,7 +359,7 @@ def _q16_logits(folder, device, hours, rows, meta):
     for c in rows:
         slot.rows_np[c][:] = rows[c]
         slot.meta[c][:] = meta[c]
-    return pipe._launch(slot).cpu()
+    return torch.cat([t.cpu() for t in pipe._launch(slot)])  # a block a replica
 
 
 def test_f32_serving_is_f32_under_torchs_default_flags(card_default_flags, tmp_path, monkeypatch):
@@ -1022,3 +1022,104 @@ def test_trainer_datamodule_and_tuning_run_on_the_card_by_default(card, tmp_path
     before = torch.cuda.memory_allocated()
     assert tune_batch_size(_narrow_fit_model(), ['ECG', 'THX'], epochs_per_night=2, start=2, max_batch=8) == 8
     assert torch.cuda.memory_allocated() - before <= 1 << 20
+
+
+# ---------------------------------------------------------------- data parallel
+
+
+def test_two_rank_gloo_step_on_the_card_is_the_one_process_step(card):
+    """Two ranks spawned over gloo on cuda:0 (NCCL refuses two ranks on one
+    card): two steps of the narrow flagship with the flip and the masker on
+    (mixer dropout 0), against the one-process card step on the same global
+    batch, at the CPU step test's gates; the ranks bit-equal."""
+    from wav2sleep_tpu_torch import instantiate
+    from wav2sleep_tpu_torch.models.wav2sleep import flagship_config
+    from wav2sleep_tpu_torch.parallel import mesh as pmesh
+    from wav2sleep_tpu_torch.settings import COLS_TO_SAMPLES_PER_EPOCH
+
+    from . import torch_parallel_workers as workers
+
+    cfg = flagship_config(32, 32)
+    cfg['epoch_mixer']['dropout'] = cfg['sequence_mixer']['dropout'] = 0.0
+    cfg = instantiate.target_config(**cfg)
+    weights = {k: v.numpy() for k, v in workers.build(cfg, None).state_dict().items()}
+    rng = np.random.default_rng(1)
+    x = {k: (rng.normal(size=(4, 2 * n)) * 2.0 + 0.5).astype(np.float32) for k, n in COLS_TO_SAMPLES_PER_EPOCH.items()
+         if k in ('ABD', 'THX', 'ECG', 'PPG')}
+    x['PPG'][1] = -np.inf
+    y = rng.integers(-1, 4, size=(4, 2)).astype(np.float32)
+    case = dict(cfg=cfg, weights=weights, x=x, y=y, n_steps=2, masker=True, flip=True)
+    r0, r1 = (r[0] for r in pmesh.spawn(workers.step_cases, ['cuda:0', 'cuda:0'], args=([case],), timeout=300,
+                                                        deadline=300))
+    one = workers.run_steps(**case, device='cuda')
+    lr = workers.exp_warmup_schedule(*workers.SCHEDULE)
+    noisy = {k: np.zeros(v.shape, bool) for k, v in one[0]['mu'].items()}
+    for i, (a, b, want) in enumerate(zip(r0, r1, one)):
+        assert (a['loss'], a['grad_norm']) == (b['loss'], b['grad_norm'])
+        for k, p in a['params'].items():
+            np.testing.assert_array_equal(b['params'][k], p)
+        for key in ('loss', 'grad_norm'):
+            assert abs(a[key] - want[key]) <= 5e-4 * abs(want[key]), key
+        np.testing.assert_array_equal(a['cmat'], want['cmat'])
+        if i == 0:
+            # Each gradient of step 1, where both sides start from the same
+            # parameters, as chip_smoke.py phases 11 and 16 gate it; step 2
+            # starts from parameters that Adam's noisy elements moved apart
+            # (one element at 5.1e-4 of its tensor's largest, on the card).
+            for k, g in want['grads'].items():
+                np.testing.assert_allclose(a['grads'][k], g, rtol=0, atol=5e-4 * max(np.abs(g).max(), 1e-12),
+                                           err_msg=k)
+        # The parameters as the CPU step test holds them (ROADMAP §C.7): 1e-4
+        # outside the elements whose Adam first moments part by over 10%,
+        # which Adam moves by up to lr whatever their gradient's size; those,
+        # at most 1%, within Adam's reach.
+        for k, m in want['mu'].items():
+            noisy[k] |= np.abs(a['mu'][k] - m) > 0.1 * np.abs(m)
+        d = {k: np.abs(a['params'][k] - p) for k, p in want['params'].items()}
+        reach = 2 * 1.01 * sum(lr(c) for c in range(i + 1))
+        assert max(np.where(noisy[k], 0, v).max() for k, v in d.items()) <= 1e-4
+        assert max(np.where(noisy[k], v, 0).max() for k, v in d.items()) <= reach
+        assert sum(int(v.sum()) for v in noisy.values()) <= 0.01 * sum(v.size for v in noisy.values())
+
+
+def test_k1_launches_on_its_inputs_device(card):
+    """K1 on a tensor of a card that is not the current one runs there (the
+    wrapper enters the input's device), as a rank of a group on its own
+    card needs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two cards; with one, no tensor lies on a card other than the current one')
+    other = torch.device('cuda:1')
+    x, w, b, mu, inv = _inputs(2, 777, 32, 64, other, seed=5)
+    with torch.cuda.device(0):
+        got = k1.conv_k3(x, w, b, mu, inv, 1, 'gelu')
+    assert got.device == other
+    torch.testing.assert_close(got, k1.conv_k3_reference(x, w, b, mu, inv, 1, 'gelu'), atol=1e-4, rtol=1e-4)
+
+
+def test_two_replica_q16_pipeline_on_the_card_is_one_replica(card, tmp_path):
+    """q16 serving over devices=['cuda:0', 'cuda:0'] (a replica of the
+    weights each, a block of each batch each, each on its own stream): the
+    hypnograms of one replica exactly, K1 launched by both replicas."""
+    from wav2sleep_tpu_torch import pipeline as tpipe
+    from wav2sleep_tpu_torch.data.edf import write_edf
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+
+    cfg = flagship_config(32, 32)
+    cfg['signal_map'] = {'ECG': 'ECG', 'THX': 'THX'}
+    model = build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(7)
+    fps = []
+    for i in range(6):
+        fp = str(tmp_path / f'night{i}.edf')
+        sigs = {'ECG': rng.normal(size=256 * 30 * 6), 'Thor': np.sin(np.arange(32 * 30 * 6) / 7.0 + i)}
+        write_edf(fp, sigs, {'ECG': 256.0, 'Thor': 32.0}, physical_ranges={'ECG': (-5, 5), 'Thor': (-2, 2)},
+                  record_duration=30.0)
+        fps.append(fp)
+    kw = dict(batch_size=4, max_length_hours=6 / 120, precision='bfloat16')
+    one = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], device='cuda', **kw).run(fps))
+    before = k1.LAUNCHES
+    two = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], devices=['cuda:0', 'cuda:0'], **kw).run(fps))
+    assert (k1.LAUNCHES - before) % 2 == 0 and k1.LAUNCHES > before
+    assert list(two) == list(one) == fps
+    for fp in fps:
+        np.testing.assert_array_equal(two[fp], one[fp])

@@ -108,6 +108,10 @@ from wav2sleep_tpu_torch import train_bench
 line = train_bench.run(batch=1, epochs_per_night=1, feature_dim=16, precision='float32', transport='q8', k=2,
                        reps=1, device='cpu', e2e=False)
 assert line['device'] == 'cpu' and np.isfinite(line['loss'])
+# The data-parallel layer without a group, and the version.
+from wav2sleep_tpu_torch.parallel import mesh
+assert mesh.make_mesh(['cpu', 'cpu']).shape == {{'data': 2, 'model': 1}}
+assert not mesh.maybe_initialize_distributed() and wav2sleep_tpu_torch.__version__
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 print('IMPORTED', len(mods), 'LEAKED', leaked)
 '''
@@ -122,7 +126,7 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 70, proc.stdout  # every module of the package was reached
+    assert n >= 71, proc.stdout  # every module of the package was reached
 
 
 _FIT_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''

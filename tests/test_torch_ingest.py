@@ -20,6 +20,7 @@ import importlib.util
 import json
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -264,6 +265,118 @@ def test_eog_beside_cardio_reads_in_time_order(tmp_path):
             np.testing.assert_array_equal(xm[col], xc[col])
         np.testing.assert_array_equal(y, yc)
         np.testing.assert_array_equal(ym, yc)
+
+
+def _eog_in_time_order(edf_fp):
+    from wav2sleep_tpu_torch.data.edf import load_edf_arrays
+    from wav2sleep_tpu_torch.data.preprocessing import interp_to_grid, signal_target_grid
+
+    arrays, _, _ = load_edf_arrays(edf_fp, columns=['EOG-L', 'EOG-R'])
+    return {col: interp_to_grid(np.arange(len(sig)) / fs, sig, signal_target_grid(col, 10.0), interior_only=True,
+                                fill_value=0.0).astype(np.float32) for col, (sig, fs) in arrays.items()}
+
+
+def _reads(monkeypatch):
+    """Record the ``time_order`` of every parquet read the port's dataset makes."""
+    from wav2sleep_tpu_torch.data import parquet
+
+    seen, read = [], parquet._read
+
+    def spy(fp, columns, time_order):
+        seen.append(time_order)
+        return read(fp, columns, time_order)
+
+    monkeypatch.setattr(parquet, '_read', spy)
+    return seen
+
+
+def test_jax_mixed_night_reads_in_time_order(monkeypatch, tmp_path):
+    """Exact (ROADMAP §C.21): a cardio + EOG night that the JAX package
+    ingested at its default columns holds the EOG rows out of time order.
+    The port's ``ParquetDataset`` reads its EOG as the signal resampled in
+    time order and z-scored, and its cardio channels as from JAX's
+    cardio-only file, with the stored index read for that file only; JAX's
+    own dataset still reads the EOG scrambled."""
+    from wav2sleep_tpu_torch.data import parquet
+    from wav2sleep_tpu_torch.data.preprocessing import EDF_COLS
+
+    edf_fp, xml_fp = str(tmp_path / 'n.edf'), str(tmp_path / 'n-nsrr.xml')
+    _edf(edf_fp, 200, np.random.default_rng(3), eog=True)
+    _xml(xml_fp, (0, 1, 3))
+    mixed, cardio = str(tmp_path / 'mixed.parquet'), str(tmp_path / 'cardio.parquet')
+    assert jax_ingest.process_night(edf_fp, xml_fp, mixed, EDF_COLS)
+    assert jax_ingest.process_night(edf_fp, xml_fp, cardio, CARDIO)
+    assert parquet.read_layout(mixed)[1] and not parquet.read_layout(cardio)[1]
+    want = dataset.zscore_normalize(_eog_in_time_order(edf_fp))
+    seen = _reads(monkeypatch)
+    x, y = dataset.ParquetDataset([mixed], ['EOG-L', 'EOG-R'])[0]
+    for col in want:
+        np.testing.assert_array_equal(x[col], want[col])
+    jx, jy = jax_dataset.ParquetDataset([mixed], ['EOG-L', 'EOG-R'])[0]
+    assert not np.array_equal(jx['EOG-L'], want['EOG-L'])  # the JAX package's reading, §C.19
+    np.testing.assert_array_equal(y, jy)
+    xm, ym = dataset.ParquetDataset([mixed], CARDIO)[0]
+    xc, yc = dataset.ParquetDataset([cardio], CARDIO)[0]
+    assert seen == [True, True, False]
+    for col in CARDIO:
+        np.testing.assert_array_equal(xm[col], xc[col])
+    np.testing.assert_array_equal(ym, yc)
+
+
+def test_jax_folder_model_cache_reads_in_time_order(monkeypatch, tmp_path):
+    """Exact (ROADMAP §C.21): the cache that the JAX API's ``prepare`` writes
+    for a model loaded from a folder (ABD's grid first) reads in the port as
+    the port's own cache of the same night, which is in time order and marked
+    so: the index is read for JAX's file and not for the port's."""
+    from wav2sleep_tpu import api as jax_api
+    from wav2sleep_tpu_torch import api
+    from wav2sleep_tpu_torch.data import parquet
+
+    folder = tmp_path / 'edfs'
+    _edf(str(folder / 'n.edf'), 200, np.random.default_rng(4))
+    signals = ['ABD', 'ECG', 'PPG', 'THX']
+    theirs = jax_api.prepare(str(folder), signals, tmp_root_folder=str(tmp_path / 'jax'))
+    ours = api.prepare(str(folder), signals, tmp_root_folder=str(tmp_path / 'port'))
+    (jfp,), (tfp,) = (sorted(str(p) for p in Path(d).rglob('*.parquet')) for d in (theirs, ours))
+    assert parquet.read_layout(jfp)[1] and not parquet.read_layout(tfp)[1]
+    assert parquet.schema_metadata(tfp)[parquet.TIME_ORDER_KEY] == b'time-order'
+    seen = _reads(monkeypatch)
+    kw = dict(columns=signals, require_labels=False)
+    got, _ = dataset.ParquetDataset([jfp], **kw)[0]
+    want, _ = dataset.ParquetDataset([tfp], **kw)[0]
+    assert seen == [True, False]
+    for col in signals:
+        np.testing.assert_array_equal(got[col], want[col])
+    scrambled, _ = jax_dataset.ParquetDataset([jfp], **kw)[0]
+    assert not np.array_equal(scrambled['ECG'], want['ECG'])
+
+
+def test_other_files_read_as_before(corpus, monkeypatch, tmp_path):
+    """Bit for bit as the column read without the index, with no index read:
+    the port's own files, a mixed cardio + EOG night that the port ingested
+    among them, and the JAX package's cardio-only files."""
+    from wav2sleep_tpu_torch.data import parquet
+    from wav2sleep_tpu_torch.data.preprocessing import EDF_COLS
+
+    _, outs, _ = corpus
+    edf_fp, xml_fp = str(tmp_path / 'n.edf'), str(tmp_path / 'n-nsrr.xml')
+    _edf(edf_fp, 200, np.random.default_rng(3), eog=True)
+    _xml(xml_fp, (0, 1, 3))
+    mixed = str(tmp_path / 'mixed.parquet')
+    assert ingest.process_night(edf_fp, xml_fp, mixed, EDF_COLS)
+    names = [n for n in OUTPUTS if not n.endswith('.issues.parquet')]
+    fps = [os.path.join(outs[run], n) for run in ('jax', 'port') for n in names if run == 'port' or 'sleep-0001' not in n]
+    seen = _reads(monkeypatch)
+    for fp in fps + [mixed]:
+        cols = [c for c in EDF_COLS if c in parquet.get_parquet_cols(fp)]
+        got, _ = dataset.ParquetDataset([fp], cols)[0]
+        n_reads = len(seen)
+        raw = parquet.read_columns(fp, cols)
+        del seen[n_reads:]
+        for col in cols:
+            x = raw[col][~np.isnan(raw[col])].astype(np.float32)
+            np.testing.assert_array_equal(got[col], dataset.zscore_normalize({col: x})[col])
+    assert len(seen) == len(fps) + 1 and not any(seen)
 
 
 def test_api_frames_keep_time_order_where_jax_does_not():

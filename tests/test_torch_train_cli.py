@@ -19,6 +19,7 @@ from wav2sleep_tpu import config as jconfig
 from wav2sleep_tpu.checkpoint import reference_compatible_config as jax_reference_config
 from wav2sleep_tpu_torch import api, config, instantiate
 from wav2sleep_tpu_torch.checkpoint import yaml_load, yaml_scalar
+from wav2sleep_tpu_torch.parallel import mesh as pmesh
 from wav2sleep_tpu_torch.train import __main__ as cli
 from wav2sleep_tpu_torch.train import tuning
 from wav2sleep_tpu_torch.train.masker import SignalMasker
@@ -161,8 +162,16 @@ def test_cli_resume_tuned_accumulation_and_profile(corpus, tmp_path, monkeypatch
 
 def test_cli_refusals(corpus, monkeypatch):
     monkeypatch.setenv('WAV2SLEEP_DATA', str(corpus))
-    with pytest.raises(NotImplementedError, match='§A.6'):
-        cli.main(['device=cpu', 'num_devices=2'])
+    # More devices than cards raises and names the count, before any rank
+    # starts (a machine with one card, here faked).
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, 'is_available', lambda: True)
+        m.setattr(torch.cuda, 'device_count', lambda: 1)
+        with pytest.raises(ValueError, match='num_devices=2 but 1 CUDA device is visible'):
+            cli.main([*NARROW, 'num_devices=2'])
+        assert pmesh.devices_for(0, torch.device('cuda'), 'num_devices=0') == ['cuda:0']  # 0: every card
+    assert pmesh.devices_for(0, torch.device('cpu'), 'num_devices=0') == ['cpu']
+    assert pmesh.devices_for(3, torch.device('cpu'), 'num_devices=3') == ['cpu'] * 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             cli.main(NARROW)

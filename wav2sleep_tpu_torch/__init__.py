@@ -10,8 +10,11 @@ the EDF reader, the resamplers, the native host library, the checkpoint
 key mapping) it keeps as its own copies. The inference API's functions
 (``load_model``, ``prepare``, ``load_dataset``, ``predict``,
 ``save_predictions``, ``predict_on_folder``) are importable from the
-package, as from the JAX package.
+package, as from the JAX package, and ``__version__`` is the JAX package's
+(``wav2sleep_tpu/version.py``), kept here as the port's own copy.
 """
+
+__version__ = '0.1.0'
 
 __all__ = [
     'load_model',

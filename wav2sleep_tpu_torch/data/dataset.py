@@ -3,7 +3,10 @@
 The port's counterpart of ``wav2sleep_tpu/data/dataset.py``, with the same
 semantics and, item for item, the same bits:
 
-- one item = one night; each column without its NaNs, as float32;
+- one item = one night; each column without its NaNs, as float32, the rows
+  first put in time order where the JAX package wrote them out of it
+  (``parquet.read_layout``; here the port departs from the JAX package's
+  items, ROADMAP §C.19);
 - all present signals agree on the recording length (in 30 s epochs);
 - truncation to ``max_length_hours``;
 - per-recording z-score (eps 1e-6, ``ddof=1``) or causal EMA normalization;
@@ -41,7 +44,7 @@ from ..settings import (
     NORM_OUTLIER_THRESHOLD,
 )
 from ..utils import stop_aware_put
-from .parquet import get_parquet_cols, read_columns
+from .parquet import read_columns, read_layout
 
 logger = logging.getLogger(__name__)
 
@@ -121,30 +124,35 @@ class ParquetDataset:
         # Fractional hours are allowed (short recordings in tests).
         self.max_length_epochs = 1_000_000 if max_length_hours is None else int(round(max_length_hours * 60 * 2))
         self.causal = causal
-        # The columns to read, probed once per file from its footer.
-        self._want_cols: Dict[str, list] = {}
+        # The columns to read, and whether the rows need sorting by time,
+        # probed once per file from its footer.
+        self._want_cols: Dict[str, tuple[list, bool]] = {}
 
     def __len__(self) -> int:
         return len(self.files)
 
-    def _wanted(self, fp: str) -> list[str]:
-        """The requested columns (and the label) that ``fp`` holds; empty,
-        which reads every column, when the footer cannot be read."""
+    def _wanted(self, fp: str) -> tuple[list[str], bool]:
+        """The requested columns (and the label) that ``fp`` holds, empty,
+        which reads every column, when the footer cannot be read; and whether
+        its rows must be sorted by the stored index (a JAX-written file with
+        a finer grid after a coarser one, ``parquet.read_layout``)."""
         want = self._want_cols.get(fp)
         if want is None:
             try:
-                avail = set(get_parquet_cols(fp))
-                want = [c for c in self.columns if c in avail]
+                avail, time_order = read_layout(fp)
+                cols = [c for c in self.columns if c in avail]
                 if LABEL in avail:
-                    want.append(LABEL)
+                    cols.append(LABEL)
+                want = cols, time_order
             except Exception:  # noqa: BLE001 - a footer flake: the full read retries
-                want = []
+                want = [], False
             self._want_cols[fp] = want
         return want
 
     def __getitem__(self, idx: int) -> NightItem:
         fp = self.files[idx]
-        cols = read_columns(fp, self._wanted(fp) or None)
+        want, time_order = self._wanted(fp)
+        cols = read_columns(fp, want or None, time_order=time_order)
         signal_dict: Dict[str, np.ndarray] = {}
         cols_to_pad: list[str] = []
         recording_epochs: int | None = None
@@ -223,23 +231,43 @@ def batch_iterator(
     num_threads: int = 2,
     pad_to_epochs: int | None = None,
     prefetch: int = 2,
+    block: tuple[int, int] | None = None,
 ) -> Iterator[tuple[Dict[str, np.ndarray], np.ndarray]]:
     """Batches of ``dataset`` in order (shuffled by ``seed`` with
     ``shuffle``), loaded by ``num_threads`` threads (pyarrow reads release
     the GIL) at most ``num_threads + prefetch`` batches ahead of the
-    consumer; serial with ``num_threads <= 1``."""
+    consumer; serial with ``num_threads <= 1``.
+
+    ``block=(i, n)`` yields block ``i`` of ``n`` equal row blocks of each
+    batch, and reads only its nights: each batch is first padded to
+    ``batch_size`` rounded up to a multiple of ``n`` by repeating its nights
+    from the first, with every label of a repeated row -1 (the trainer's
+    padding of a short batch, ``Trainer._pad_batch``). A rank of a
+    data-parallel group reads its rows of the global batch so."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     batches = [order[i : i + batch_size] for i in range(0, len(order), batch_size)]
     if drop_last:
         batches = [b for b in batches if len(b) == batch_size]
+    if block is not None:
+        i, n = block
+        rows = -(-batch_size // n)
+        pad = [np.arange(rows * n) >= len(b) for b in batches]
+        batches = [np.concatenate([b, b[np.arange(rows * n - len(b)) % len(b)]]) for b in batches]
+        batches = [(b[i * rows : (i + 1) * rows], p[i * rows : (i + 1) * rows]) for b, p in zip(batches, pad)]
+    else:
+        batches = [(b, None) for b in batches]
 
-    def load_batch(idxs) -> tuple[Dict[str, np.ndarray], np.ndarray]:
+    def load_batch(idxs_pad) -> tuple[Dict[str, np.ndarray], np.ndarray]:
+        idxs, pad = idxs_pad
         items = [dataset[int(i)] for i in idxs]
         if pad_to_epochs is not None:
             items = [pad_or_truncate_item(it, pad_to_epochs) for it in items]
-        return collate(items)
+        x, y = collate(items)
+        if pad is not None and pad.any():
+            y[pad] = IGNORE_LABEL
+        return x, y
 
     if num_threads <= 1:
         for idxs in batches:

@@ -16,6 +16,15 @@ lays a DataFrame out (``write_frame``, ``read_frame``): the index as the
 ``pandas`` schema metadata, so that ``pd.read_parquet`` of a file the port
 wrote gives the JAX package's frame and the port reads the JAX package's
 files; ``index_start`` reads the first index value alone.
+
+Row order: the JAX package joins a night's signals with ``pd.concat``, which
+keeps the first signal's grid and appends a later, finer grid's other points
+after it, so a file with a finer-grid signal after a coarser one holds that
+signal's rows out of time order (ROADMAP §C.19). ``read_layout`` flags such
+a file unless the port wrote it (``write_frame`` marks a mixed frame, which
+it writes in time order, with ``TIME_ORDER_KEY``), and ``read_columns(...,
+time_order=True)`` then sorts the rows by the stored index before the
+caller drops the NaNs. Every other file is read without its index.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from glob import glob
 
 import numpy as np
 
+from ..settings import COLS_TO_SAMPLES_PER_EPOCH
 from .frame import Frame
 
 logger = logging.getLogger(__name__)
@@ -48,6 +58,35 @@ def get_parquet_cols(fp: str) -> list[str]:
     return [c for c in schema.names if c not in index]
 
 
+def finer_after_coarser(columns) -> bool:
+    """Whether a signal on a finer grid follows one on a coarser grid in
+    ``columns`` (non-signal columns ignored): only then can the JAX package's
+    ``pd.concat`` have written rows out of time order."""
+    coarsest = None
+    for c in columns:
+        n = COLS_TO_SAMPLES_PER_EPOCH.get(c)
+        if n is None:
+            continue
+        if coarsest is not None and n > coarsest:
+            return True
+        coarsest = n if coarsest is None else min(coarsest, n)
+    return False
+
+
+def read_layout(fp: str) -> tuple[list[str], bool]:
+    """A parquet file's data columns, and whether its rows must be sorted by
+    the stored index (``INDEX_COLUMN``) to be in time order: a finer grid
+    after a coarser one, an index stored, and no ``TIME_ORDER_KEY`` mark.
+    One footer read."""
+    import pyarrow.parquet as pq
+
+    schema = pq.read_schema(fp, memory_map=True)
+    index = _index_columns(schema)
+    cols = [c for c in schema.names if c not in index]
+    marked = TIME_ORDER_KEY in (schema.metadata or {})
+    return cols, INDEX_COLUMN in schema.names and not marked and finer_after_coarser(cols)
+
+
 def get_parquet_fps(folder: str, recursive: bool = False) -> list[str]:
     """Parquet files in ``folder`` (and below it with ``recursive``)."""
     if not os.path.exists(folder):
@@ -57,25 +96,32 @@ def get_parquet_fps(folder: str, recursive: bool = False) -> list[str]:
     return glob(f'{folder}/*.parquet')
 
 
-def _read(fp: str, columns: list[str] | None) -> dict[str, np.ndarray]:
+def _read(fp: str, columns: list[str] | None, time_order: bool) -> dict[str, np.ndarray]:
     import pyarrow.parquet as pq
 
     if columns is None:
         columns = get_parquet_cols(fp)
-    table = pq.read_table(fp, columns=columns)
+    table = pq.read_table(fp, columns=columns + [INDEX_COLUMN] if time_order else columns)
     # pyarrow turns nulls into NaN (integers with nulls into float64), as
     # pandas does.
-    return {name: table.column(name).to_numpy() for name in columns}
+    out = {name: table.column(name).to_numpy() for name in columns}
+    if time_order:
+        order = np.argsort(_index_values(table.column(INDEX_COLUMN))[0], kind='stable')
+        out = {name: v[order] for name, v in out.items()}
+    return out
 
 
-def read_columns(fp: str, columns: list[str] | None = None, max_retries: int = 3) -> dict[str, np.ndarray]:
+def read_columns(fp: str, columns: list[str] | None = None, max_retries: int = 3,
+                 time_order: bool = False) -> dict[str, np.ndarray]:
     """``{column: numpy array}`` of ``columns`` (every data column when None),
     nulls as NaN, retried ``max_retries`` times for flaky network file
-    systems; raises ``ValueError`` when every attempt failed."""
+    systems; raises ``ValueError`` when every attempt failed. With
+    ``time_order`` the rows are sorted (stably) by the stored index, which
+    is read for that alone (``read_layout`` says when a file needs it)."""
     last_error = None
     for _ in range(max_retries + 1):
         try:
-            return _read(fp, None if columns is None else list(columns))
+            return _read(fp, None if columns is None else list(columns), time_order)
         except Exception as e:  # noqa: BLE001 - deliberate: any I/O flake retries
             logger.error(f'Failed to read parquet {fp=} - {e}')
             last_error = e
@@ -106,6 +152,9 @@ def write_night(fp: str, columns: dict[str, np.ndarray], metadata: dict | None =
 # metadata) ``write_frame`` follows.
 PANDAS_LAYOUT = '3.0.3'
 INDEX_COLUMN = '__index_level_0__'
+# The schema key ``write_frame`` sets on a frame whose columns mix grids:
+# its rows are in time order, so a reader need not sort them.
+TIME_ORDER_KEY = b'wav2sleep_rows'
 
 
 def _pandas_column(name: str | None, field_name: str, dtype: np.dtype) -> dict:
@@ -122,7 +171,9 @@ def write_frame(fp: str, frame: Frame, metadata: dict[bytes, bytes] | None = Non
     frame: each column in its dtype with NaN as null, then the index as
     ``__index_level_0__`` (``timestamp[ns]`` for a datetime index, else
     float64), and the ``pandas`` metadata that describes them, followed by
-    ``metadata``'s entries (ingest's ``signal_metadata``)."""
+    ``metadata``'s entries (ingest's ``signal_metadata``) and, where a finer
+    grid follows a coarser one, ``TIME_ORDER_KEY``: the port's frames are
+    in time order."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -140,6 +191,8 @@ def write_frame(fp: str, frame: Frame, metadata: dict[bytes, bytes] | None = Non
         'pandas_version': PANDAS_LAYOUT,
     }
     schema_metadata = {b'pandas': json.dumps(meta).encode('utf-8'), **(metadata or {})}
+    if finer_after_coarser(frame.columns):
+        schema_metadata[TIME_ORDER_KEY] = b'time-order'
     pq.write_table(pa.table(arrays).replace_schema_metadata(schema_metadata), fp)
 
 

@@ -25,8 +25,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh
 
 
 class ConvLayerNorm(nn.Module):
@@ -123,7 +126,11 @@ class BatchNorm(nn.Module):
     the JAX package's arithmetic: in training the batch's biased variance
     as ``E[x^2] - mean^2``, and the running variance takes the unbiased one
     (x n/(n-1)); in eval the running statistics. ``num_batches_tracked``
-    counts the updates. A bf16 input is normalized in f32 and the result
+    counts the updates. Inside a data-parallel step (``parallel.mesh.active``)
+    the batch is the global one: each rank's sums, sums of squares and row
+    count are summed across the group (a differentiable ``all_reduce``), as
+    GSPMD reduces JAX's statistics, so every rank normalizes and updates its
+    running statistics with the same numbers. A bf16 input is normalized in f32 and the result
     rounded to bf16, as XLA's fused bf16 program computes it: in bf16,
     ``E[x^2] - mean^2`` over a few values goes negative. The running
     statistics keep their own dtype (f32 in a bf16 step, as JAX's
@@ -145,10 +152,19 @@ class BatchNorm(nn.Module):
         x = x_NTC.to(torch.promote_types(x_NTC.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = x.square().mean(dim=axes) - mean.square()
+            n = x.numel() // x.shape[-1]
+            group = mesh.current()
+            if group is None:
+                mean = x.mean(dim=axes)
+                var = x.square().mean(dim=axes) - mean.square()
+            else:
+                # Every rank holds a batch of the same shape (the trainer pads
+                # each to one), so the global row count is n x ranks.
+                sums = dist_nn.all_reduce(torch.cat([x.sum(dim=axes), x.square().sum(dim=axes)]))
+                n *= group.size
+                mean, sq = (sums / n).chunk(2)
+                var = sq - mean.square()
             if not self.frozen:
-                n = x.numel() // x.shape[-1]
                 with torch.no_grad():
                     keep, unbiased = 1.0 - self.momentum, var * (n / max(n - 1, 1))
                     self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)

@@ -29,11 +29,18 @@ blocking, and overlap host decode with device compute: a producer thread
 fills and launches batch ``k + 1`` while the consumer fetches batch ``k``.
 A ``precision='float32'`` forward runs every conv and matmul in full f32
 (no TF32).
+
+Data-parallel serving (``devices=[...]`` on q16, q8 and q4, the JAX
+pipelines' ``mesh``): each device holds a replica of the weights; a batch's
+rows go to the devices in contiguous blocks, each block's copy and forward
+run on a stream of its own device, and the argmax is gathered in row order.
+A slot's per-device copy events all complete before the slot is reused.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import functools
 import logging
@@ -650,31 +657,32 @@ class _Slot:
         self.rows = {c: torch.zeros((batch_size, n), dtype=dtype, pin_memory=pin) for c, n in lengths.items()}
         self.rows_np = {c: t.numpy() for c, t in self.rows.items()}
         self.meta = {} if meta_dtype is None else {c: np.zeros(batch_size, dtype=meta_dtype) for c in lengths}
-        self.copied: torch.cuda.Event | None = None
+        self.copied: list[torch.cuda.Event] = []  # one per device copy in flight
 
     def wait_free(self) -> None:
-        if self.copied is not None:
-            self.copied.synchronize()
-            self.copied = None
+        for event in self.copied:
+            event.synchronize()
+        self.copied.clear()
 
     def dup_row(self, src: int, dst: int) -> None:
         for part in (self.rows_np, self.meta):
             for arr in part.values():
                 arr[dst] = arr[src]
 
-    def to_device(self, device: torch.device) -> dict[str, torch.Tensor]:
-        """Non-blocking copy of every row to ``device``; the slot is free
-        again once ``wait_free`` returns."""
-        dev = {c: t.to(device, non_blocking=True) for c, t in self.rows.items()}
+    def to_device(self, device: torch.device, rows: slice = slice(None)) -> dict[str, torch.Tensor]:
+        """Non-blocking copy of ``rows`` of every signal to ``device``, on the
+        current stream; the slot is free again once ``wait_free`` returns."""
+        dev = {c: t[rows].to(device, non_blocking=True) for c, t in self.rows.items()}
         if device.type == 'cuda':
-            self.copied = torch.cuda.Event()
-            self.copied.record()
+            event = torch.cuda.Event()
+            event.record()
+            self.copied.append(event)
         return dev
 
-    def meta_fields(self, names, device: torch.device) -> list[dict[str, torch.Tensor]]:
-        """Per metadata field in ``names``, a dict of [batch] tensors on
+    def meta_fields(self, names, device: torch.device, rows: slice = slice(None)) -> list[dict[str, torch.Tensor]]:
+        """Per metadata field in ``names``, a dict of tensors of ``rows`` on
         ``device`` keyed by signal."""
-        return [{c: torch.from_numpy(m[name].copy()).to(device) for c, m in self.meta.items()}
+        return [{c: torch.from_numpy(m[name][rows].copy()).to(device) for c, m in self.meta.items()}
                 for name in names]
 
 
@@ -744,7 +752,9 @@ def _stream(fps: list[str], batch_size: int, get_slots: Callable[[], list[_Slot]
                 return
             if kind == 'err':
                 raise chunk
-            preds = result.cpu().numpy()
+            # One tensor, or a replica's block each (data-parallel serving).
+            preds = np.concatenate([r.cpu().numpy() for r in result]) if isinstance(result, list) \
+                else result.cpu().numpy()
             for i, fp in enumerate(chunk):
                 hyp = preds[i]
                 yield fp, hyp[: min(int(counts[i]), len(hyp))]
@@ -841,7 +851,8 @@ class StreamingPipelineQ16(_Pipeline):
     As in the JAX package, ``precision='bfloat16'`` makes the inputs, and so
     the encoders' convs, bf16. ``extractor`` defaults to the transport's
     own; any object with its ``extract_into(fp, rows, meta, row)`` interface
-    will do.
+    will do. ``devices`` serves each batch over a replica per device (the
+    module docstring); ``batch_size`` must divide over them.
     """
 
     transport_dtype = torch.int16
@@ -856,9 +867,27 @@ class StreamingPipelineQ16(_Pipeline):
         precision: str = 'bfloat16',
         device: torch.device | str | None = None,
         extractor=None,
+        devices: list | None = None,
     ):
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if batch_size % len(devices) != 0:
+                raise ValueError(
+                    f'batch_size={batch_size} must divide evenly over the data axis ({len(devices)})'
+                )
+            device = devices[0]
         super().__init__(model, signals, batch_size, max_length_hours, device)
-        self.forward = self._make_forward(precision)
+        self.forward = self._make_forward(precision, self.model)
+        # A replica of the weights on each device, each with its forward
+        # and, over several cards, a stream of its own. The first is the
+        # model itself, through ``self.forward``.
+        devices = devices or [self.device]
+        self._replicas = []
+        for i, dev in enumerate(devices):
+            forward = (lambda *a: self.forward(*a)) if i == 0 else \
+                self._make_forward(precision, copy.deepcopy(self.model).to(dev).eval())
+            stream = torch.cuda.Stream(device=dev) if len(devices) > 1 and dev.type == 'cuda' else None
+            self._replicas.append((dev, forward, stream))
         self.extractor = extractor if extractor is not None else self._make_extractor()
         lengths = {c: self._transport_len(c) for c in self.signals}
         self._slots = [_Slot(lengths, batch_size, self.transport_dtype, self._pin, self.meta_dtype) for _ in range(2)]
@@ -866,8 +895,8 @@ class StreamingPipelineQ16(_Pipeline):
     def _transport_len(self, col: str) -> int:
         return self._n_grid[col]
 
-    def _make_forward(self, precision: str) -> Callable:
-        return make_streaming_forward_q16(self.model, precision)
+    def _make_forward(self, precision: str, model: torch.nn.Module) -> Callable:
+        return make_streaming_forward_q16(model, precision)
 
     def _make_extractor(self):
         return Q16NightExtractor(self.signals, self.max_length_hours)
@@ -875,10 +904,22 @@ class StreamingPipelineQ16(_Pipeline):
     def _fill(self, slot: _Slot, fp: str, row: int) -> int:
         return self.extractor.extract_into(fp, slot.rows_np, slot.meta, row)
 
-    def _launch(self, slot: _Slot) -> torch.Tensor:
+    def _launch(self, slot: _Slot) -> list[torch.Tensor]:
         # The forward takes the metadata fields in the meta dtype's order.
-        q = slot.to_device(self.device)
-        return self.forward(q, *slot.meta_fields(self.meta_dtype.names, self.device))
+        rows = self.batch_size // len(self._replicas)
+        out = []
+        for i, (dev, forward, stream) in enumerate(self._replicas):
+            block = slice(i * rows, (i + 1) * rows)
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                q = slot.to_device(dev, block)
+                preds = forward(q, *slot.meta_fields(self.meta_dtype.names, dev, block))
+            if stream is not None:
+                # The consumer reads the block on the device's default stream.
+                default = torch.cuda.default_stream(dev)
+                default.wait_stream(stream)
+                preds.record_stream(default)
+            out.append(preds)
+        return out
 
     def warmup(self) -> None:
         """One forward on the pooled buffers (builds kernels, warms caches)."""
@@ -887,7 +928,8 @@ class StreamingPipelineQ16(_Pipeline):
             m['n_valid'] = m['n_pad'] = 1
             if 'vmax' in m.dtype.names:
                 m['vmax'] = 1.0
-        self._launch(slot).cpu()
+        for t in self._launch(slot):
+            t.cpu()
 
 
 class StreamingPipelineQ8(StreamingPipelineQ16):
@@ -897,8 +939,8 @@ class StreamingPipelineQ8(StreamingPipelineQ16):
     transport_dtype = torch.int8
     meta_dtype = Q8_META_DTYPE
 
-    def _make_forward(self, precision: str) -> Callable:
-        return make_streaming_forward_q8(self.model, precision)
+    def _make_forward(self, precision: str, model: torch.nn.Module) -> Callable:
+        return make_streaming_forward_q8(model, precision)
 
     def _make_extractor(self):
         return Q8NightExtractor(self.signals, self.max_length_hours)
@@ -914,8 +956,8 @@ class StreamingPipelineQ4(StreamingPipelineQ16):
     def _transport_len(self, col: str) -> int:
         return q4_row_len(self._n_grid[col])
 
-    def _make_forward(self, precision: str) -> Callable:
-        return make_streaming_forward_q4(self.model, self._n_grid, precision)
+    def _make_forward(self, precision: str, model: torch.nn.Module) -> Callable:
+        return make_streaming_forward_q4(model, self._n_grid, precision)
 
     def _make_extractor(self):
         return Q4NightExtractor(self.signals, self._n_grid, self.max_length_hours)

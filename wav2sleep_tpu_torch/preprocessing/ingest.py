@@ -6,8 +6,14 @@ folder's basename.
         --output-folder /data/processed --columns ECG PPG ABD THX --max-parallel 16
 
 ``--max-parallel`` spawns that many worker processes on this host;
-``--shard-hosts`` also splits the work list across the processes of an
-initialised ``torch.distributed`` group (each host runs this command).
+``--shard-hosts`` first joins the ``torch.distributed`` group that torchrun's
+environment describes (``parallel.mesh.maybe_initialize_distributed``) and
+splits the work list across its processes, one a host (the counterpart of
+``preprocessing/1_tpu_ingest.sh``)::
+
+    torchrun --nnodes=H --nproc-per-node=1 --node-rank=<h> --master-addr=<host 0> --master-port=29500 \
+        -m wav2sleep_tpu_torch.preprocessing.ingest --folder /data/raw/mesa \
+        --output-folder /data/processed --columns ECG PPG ABD THX --max-parallel 16 --shard-hosts
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     from ..ingest import prepare_dataset, process_files
 
+    if args.shard_hosts:
+        from ..parallel.mesh import maybe_initialize_distributed
+
+        maybe_initialize_distributed()
     dataset = args.folder.rstrip('/').split('/')[-1]
     print(f'Processing {dataset=}...')
     fp_dict = prepare_dataset(folder=args.folder, output_folder=args.output_folder, dataset=dataset)

@@ -15,6 +15,10 @@ nights through one of the serving pipelines, chosen by ``--transport``:
   raw  the EDF's int16 channels, resampled on the device
   f32  f32 rows decoded and resampled on the host
 
+``--data-parallel N`` serves each batch over replicas on ``cuda:0..N-1``
+(q16, q8 and q4; ``--device cpu`` puts the N replicas on the CPU), as the
+JAX script shards it over a mesh of N devices.
+
 Each night gets ``<name>.preds.csv`` (columns ``Timestamp,Pred``): one row
 per 30-second epoch, timestamped from the EDF's start at the epoch's end,
 or in seconds (``30.0, 60.0, ...``) when the start cannot be read.
@@ -35,6 +39,7 @@ from .checkpoint import read_config
 from .data.edf import get_edf_start
 from .data.frame import datetime_to_ns, format_stamps, seconds_to_ns
 from .instantiate import model_family, wav2sleep_arguments
+from .parallel import mesh as pmesh
 from .pipeline import (
     StreamingPipeline,
     StreamingPipelineQ4,
@@ -81,6 +86,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--max-length-hours', type=float, default=10.0)
     parser.add_argument('--overwrite', action='store_true')
     parser.add_argument('--device', default=None, help='torch device (default: cuda; raises without a card).')
+    parser.add_argument(
+        '--data-parallel',
+        type=int,
+        default=0,
+        help='Shard each batch over this many devices (0 = single device).',
+    )
     return parser
 
 
@@ -100,6 +111,10 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    n = args.data_parallel
+    devices = pmesh.devices_for(n, device, f'--data-parallel {n}') if n else None
+    if devices is not None and args.transport not in ('q8', 'q16', 'q4'):
+        raise SystemExit('--data-parallel requires --transport q8, q16 or q4')
     try:
         check_local(args.model_folder)
     except ValueError as e:
@@ -144,7 +159,7 @@ def main(argv=None) -> None:
     model = load_model(args.model_folder, precision=args.precision, device=device)
     pipe = PIPELINES[args.transport](
         model, list(signals), batch_size=args.batch_size, max_length_hours=args.max_length_hours,
-        precision=args.precision, device=device,
+        precision=args.precision, device=device, **({'devices': devices} if devices is not None else {}),
     )
     os.makedirs(args.output_folder, exist_ok=True)
     t0 = time.time()

@@ -7,12 +7,26 @@ overrides on the same configs (``scripts/config``)::
     python -m wav2sleep_tpu_torch.train name=mesa_ecg datasets=mesa inputs=cardiorespiratory/ecg epochs=10
     python -m wav2sleep_tpu_torch.train -m training.optimizer.lr=1e-3,3e-4   # a sweep, run by run
 
-It trains on one card (``device=cpu`` asks for the CPU; without a card it
-raises), with gradient accumulation ``target_batch_size // batch_size``,
-then optionally restores the best checkpoint, evaluates the test sets and
-exports the deployable folder to ``<run_dir>/model`` and the final metrics
-to ``<run_dir>/final_metrics.json``. ``profile=true`` traces epoch 0 with
-``torch.profiler`` into ``<run_dir>/profile``.
+It trains on the cards (``device=cpu`` asks for the CPU; without a card it
+raises), with gradient accumulation ``target_batch_size // (batch_size x
+devices)`` as the JAX script computes it, then optionally restores the best
+checkpoint, evaluates the test sets and exports the deployable folder to
+``<run_dir>/model`` and the final metrics to ``<run_dir>/final_metrics.json``.
+``profile=true`` traces epoch 0 with ``torch.profiler`` into
+``<run_dir>/profile``.
+
+Data parallelism (``parallel.mesh``), as the JAX script's ``num_devices``:
+
+- ``num_devices=0`` (the default) uses every visible card, ``num_devices=N``
+  the first N; more than the cards raises and names the count. Over N > 1
+  one command spawns a rank per card (``cuda:0..N-1``, or N CPU ranks with
+  ``device=cpu``), ``batch_size`` is the global batch, and each rank reads
+  its rows. Batch-size tuning runs at one device only.
+- Under torchrun (``torchrun --nnodes=H --nproc-per-node=G -m
+  wav2sleep_tpu_torch.train ...``) each process joins the group from the
+  environment and loads ``batch_size`` rows from its shard of the files.
+
+Rank 0 alone writes the logs, checkpoints, export and final metrics.
 """
 
 from __future__ import annotations
@@ -62,9 +76,17 @@ def _split_device(argv: list[str]) -> tuple[list[str], str | None]:
     return rest, device
 
 
+def _rank(argv: list[str], device: str | None) -> dict:
+    """One spawned rank's run (``spawn`` formed the group)."""
+    return main(argv + ([f'device={device}'] if device is not None else []))
+
+
 def main(argv: list[str] | None = None) -> dict:
+    import torch.distributed as dist
+
     from ..config import compose
     from ..instantiate import build_model, instantiate, model_family, reference_compatible_config
+    from ..parallel import mesh as pmesh
     from ..utils import fix_seeds, resolve_device
     from .datamodule import SleepDataModule
     from .loop import Trainer
@@ -74,11 +96,24 @@ def main(argv: list[str] | None = None) -> dict:
     t_start = time.time()
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(name)s %(levelname)s %(message)s')
     cfg = compose(str(CONFIG_DIR), 'main', argv)
-    if (cfg.get('num_devices') or 1) > 1:
-        raise NotImplementedError(
-            f'num_devices={cfg["num_devices"]}: the port trains on one card; multi-card training is '
-            'not ported yet (ROADMAP.md §A.6)')
-    device = resolve_device(device)
+    # Joins torchrun's group, before anything touches a card.
+    pmesh.maybe_initialize_distributed()
+    mesh = None
+    if dist.is_initialized():
+        mesh = pmesh.make_mesh()
+        device = mesh.device
+        if not mesh.is_primary:
+            logging.getLogger().setLevel(logging.WARNING)
+    else:
+        device = resolve_device(device)
+        n = int(cfg.get('num_devices') or 0)
+        devices = pmesh.devices_for(n, device, f'num_devices={n}')
+        if len(devices) > 1:
+            # One launch over N devices: a rank per device, rank 0's result.
+            cpu = device.type != 'cuda'
+            return pmesh.spawn(_rank, devices, args=(argv, 'cpu' if cpu else None),
+                               timeout=pmesh.DEFAULT_TIMEOUT.total_seconds(), threads=1 if cpu else None)[0]
+    n_dev = mesh.size if mesh is not None else 1
     fix_seeds(cfg['seed'])
     warn_if_dirty_git(debug=bool(cfg.get('debug', {}).get('max_nights')))
 
@@ -91,7 +126,7 @@ def main(argv: list[str] | None = None) -> dict:
     columns = list(cfg['inputs']['signal_map'].keys())
 
     batch_size = cfg['batch_size']
-    if cfg.get('tune_batch_size'):
+    if cfg.get('tune_batch_size') and n_dev == 1:  # one device only, as the JAX script
         tuned = tune_batch_size(
             model, columns=columns, num_classes=cfg['num_classes'],
             epochs_per_night=cfg.get('pad_to_epochs') or int(round(cfg['max_length_hours'] * 120)),
@@ -105,9 +140,9 @@ def main(argv: list[str] | None = None) -> dict:
         if tuned:
             logger.info(f'Tuned batch size: {tuned}')
             batch_size = tuned
-    accumulate = max(cfg['target_batch_size'] // batch_size, 1)
+    accumulate = max(cfg['target_batch_size'] // (batch_size * n_dev), 1)
     if accumulate > 1:
-        logger.info(f'Gradient accumulation: {accumulate} steps (effective batch {batch_size * accumulate}).')
+        logger.info(f'Gradient accumulation: {accumulate} steps (effective batch {batch_size * n_dev * accumulate}).')
 
     dm = SleepDataModule(
         columns=columns,
@@ -128,9 +163,15 @@ def main(argv: list[str] | None = None) -> dict:
         max_length_hours=cfg['max_length_hours'],
         pad_to_epochs=cfg.get('pad_to_epochs'),
         device=device,
+        mesh=mesh,
     )
     log_dir = cfg.get('run_dir') or os.path.join(cfg['log_root'], 'logs', cfg['name'],
                                                  time.strftime('%Y-%m-%d/%H-%M-%S'))
+    if mesh is not None:
+        # Every rank reads the checkpoints rank 0 writes: one run folder.
+        shared = [log_dir]
+        dist.broadcast_object_list(shared, src=0)
+        log_dir = shared[0]
     trainer = Trainer(
         model=model,
         datamodule=dm,
@@ -162,6 +203,7 @@ def main(argv: list[str] | None = None) -> dict:
         seed=cfg['seed'],
         log_dir=log_dir,
         device=device,
+        mesh=mesh,
     )
     if cfg.get('profile'):
         _with_profile(trainer, log_dir)
@@ -180,9 +222,10 @@ def main(argv: list[str] | None = None) -> dict:
     trainer.export(export_dir, reference_compatible_config(model_cfg))
     logger.info(f'Exported deployable checkpoint to {export_dir}')
     logger.info(f'Job wall time: {time.time() - t_start:.1f}s')
-    # A supervised run (train/supervise.py) reads the result from here.
-    with open(os.path.join(log_dir, 'final_metrics.json'), 'w') as f:
-        json.dump({k: float(v) for k, v in final.items()}, f, indent=2)
+    if trainer.primary:
+        # A supervised run (train/supervise.py) reads the result from here.
+        with open(os.path.join(log_dir, 'final_metrics.json'), 'w') as f:
+            json.dump({k: float(v) for k, v in final.items()}, f, indent=2)
     return final
 
 
@@ -237,15 +280,21 @@ def expand_multirun(argv: list[str]) -> list[list[str]] | None:
 
 def run(argv: list[str] | None = None):
     """``main`` once, or once per variant of a ``-m`` sweep (a dict by index)."""
+    import torch.distributed as dist
+
     argv = sys.argv[1:] if argv is None else argv
     sweeps = expand_multirun(argv)
-    if sweeps is None:
-        return main(argv)
-    results = {}
-    for i, sub in enumerate(sweeps):
-        logger.info(f'--- multirun {i + 1}/{len(sweeps)}: {sub}')
-        results[i] = main(sub)
-    return results
+    try:
+        if sweeps is None:
+            return main(argv)
+        results = {}
+        for i, sub in enumerate(sweeps):
+            logger.info(f'--- multirun {i + 1}/{len(sweeps)}: {sub}')
+            results[i] = main(sub)
+        return results
+    finally:
+        if dist.is_initialized():  # the group torchrun's environment formed
+            dist.destroy_process_group()
 
 
 if __name__ == '__main__':

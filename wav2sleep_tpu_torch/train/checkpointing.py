@@ -15,6 +15,11 @@ one ``torch.save`` file of CPU tensors, ints and floats (``state.pt``) that
 ``torch.load(weights_only=True)`` reads. Restoring copies the tensors into
 the trainer's own on its device. The JAX package's orbax checkpoints are
 not read (orbax needs JAX).
+
+Over a data-parallel group rank 0 writes and a barrier follows, so no rank
+restores a half-written checkpoint; every rank restores the same files, and
+``parallel.mesh.replicate`` checks that they hold the same state (the JAX
+package's rank-zero writes between barriers).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import shutil
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from .step import TrainState
 
 logger = logging.getLogger(__name__)
@@ -117,9 +123,12 @@ class CheckpointManager:
             'early_stopping': trainer.early_stopping.state_dict(),
             'plateau': trainer.plateau.state_dict() if trainer.plateau else None,
         }
-        self._write('last', tree, meta)
-        if is_best:
-            self._write('best', tree, meta)
+        if getattr(trainer, 'primary', True):
+            self._write('last', tree, meta)
+            if is_best:
+                self._write('best', tree, meta)
+        if getattr(trainer, 'mesh', None) is not None:
+            pmesh.barrier()
 
     def _write(self, name: str, tree: dict, meta: dict) -> None:
         """Write to ``<name>.tmp``, then swap it into place and write the sidecar."""
@@ -170,6 +179,8 @@ class CheckpointManager:
         elif 'host_ema' in tree:
             logger.warning('Checkpoint carries an offloaded EMA but ema_offload is disabled; '
                            'the EMA weights were ignored.')
+        if getattr(trainer, 'mesh', None) is not None:
+            pmesh.replicate(trainer.mesh, state_tree(state))
         return self._resume_epoch(trainer, path + '.meta.json')
 
     def _resume_epoch(self, trainer, meta_path: str) -> int:

@@ -11,9 +11,15 @@ reference's ``SleepDataModule``):
 - ``.issues.parquet`` exclusion, PPG-only file filtering by parquet schema,
 - epoch-seeded shuffling (``seed + epoch``).
 
-The JAX package shards the train list over the hosts of a pod; the port
-trains on one card, one host. The reference's rsync staging of the corpus
-to local scratch is not ported (ROADMAP §A.4).
+Over a data-parallel group (``mesh``) the train loader follows the group's
+launch contract (``parallel.mesh``): one launch over N devices splits each
+global batch of ``batch_size`` in rank order, and a rank reads only its
+rows' nights from the one-card shuffle; one process per host shards the
+file list (``shard_train_files``) and each rank loads ``batch_size`` rows.
+Both give every rank the same number of batches, which the collectives
+need. The eval loaders are not sharded, as in the JAX package: the trainer
+takes a rank's rows of each batch. The reference's rsync staging of the
+corpus to local scratch is not ported (ROADMAP §A.4).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from .. import settings
 from ..data.dataset import ParquetDataset, batch_iterator
 from ..data.parquet import get_parquet_cols, get_parquet_fps
+from ..parallel.mesh import Mesh
 from ..settings import CENSUS, PPG, TEST, TRAIN, VAL
 from ..utils import resolve_device
 
@@ -97,9 +104,12 @@ class SleepDataModule:
     # The device the batches are for (the card when None; raises without
     # one): the trainer that takes this data module stages onto it.
     device: torch.device | str | None = None
+    # The data-parallel group the train loader feeds (its rank's rows), or None.
+    mesh: Mesh | None = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        self.device = resolve_device(self.mesh.device if self.mesh is not None and self.device is None
+                                     else self.device)
         self.columns = list(self.columns)
         if self.pad_to_epochs is None:
             self.pad_to_epochs = int(round(self.max_length_hours * 120))
@@ -146,11 +156,25 @@ class SleepDataModule:
     def num_train_nights(self) -> int:
         return len(self._train_fps)
 
+    @property
+    def rank_batch_size(self) -> int:
+        """The rows of each train batch this rank gets: its block of the
+        global batch in one launch over N devices, else ``batch_size``."""
+        if self.mesh is None or self.mesh.per_process_batches:
+            return self.batch_size
+        return -(-self.batch_size // self.mesh.data)
+
     def train_loader(self, epoch: int = 0):
-        """Shuffled train iterator, the shuffle seeded by ``seed + epoch``.
-        The port trains on one card: one host, so the shard of
-        ``shard_train_files`` is the whole list (multi-card training is
-        ROADMAP §A.6)."""
+        """Shuffled train iterator, the shuffle seeded by ``seed + epoch``:
+        over a group, this rank's rows of each global batch (one launch) or
+        its own batches from its shard of the files (one process per host)."""
+        mesh = self.mesh
+        if mesh is not None and mesh.per_process_batches:
+            fps = shard_train_files(self._train_fps, self.seed + epoch, mesh.data, mesh.data_index)
+            # Already shuffled by the shard.
+            return batch_iterator(self._make_dataset(fps), batch_size=self.batch_size, shuffle=False,
+                                  drop_last=self.drop_last, num_threads=self.num_workers,
+                                  pad_to_epochs=self.pad_to_epochs)
         return batch_iterator(
             self._make_dataset(self._train_fps),
             batch_size=self.batch_size,
@@ -159,6 +183,7 @@ class SleepDataModule:
             drop_last=self.drop_last,
             num_threads=self.num_workers,
             pad_to_epochs=self.pad_to_epochs,
+            block=None if mesh is None else (mesh.data_index, mesh.data),
         )
 
     def val_loaders(self):

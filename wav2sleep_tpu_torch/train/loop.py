@@ -24,6 +24,16 @@ Randomness: the step draws its flip, masker and dropout seeds from the
 run's ``seed`` and the epoch (``epoch_seed``) and the step count; the seed is
 saved in the checkpoint, as the JAX package saves its PRNG key.
 
+Over a data-parallel group (``mesh``, ``parallel.mesh``; one rank per
+device, each with its own ``StagingRing`` on its device) the step runs over
+the group (``train.step``); a batch short of its size is padded to the data
+axis as the JAX trainer pads it, the per-process share included; the eval
+matrix's sums (loss times count, counts, confusion matrices) and the
+predictions are summed or gathered across the ranks, so every rank gets the
+same numbers and takes the same early-stopping and plateau decisions; only
+rank 0 writes ``metrics.jsonl``, the confusion figures, the checkpoints and
+the export.
+
 One deliberate difference from the JAX package: a run resumed at or past
 its last epoch returns the last epoch's val metrics from ``metrics.jsonl``
 (the JAX ``fit`` returns ``{}`` there).
@@ -45,6 +55,7 @@ from torch import nn
 
 from ..log import log_aux_metrics, mlflow_module
 from ..ops.q8_transport import encode_batch, encode_batch_q16
+from ..parallel import mesh as pmesh
 from ..settings import CCSHS, CFS, CHAT, ECG, MESA, PPG, SHHS, THX, TRAIN, VAL
 from ..utils import resolve_device
 from .datamodule import SleepDataModule
@@ -94,13 +105,15 @@ class EarlyStopping:
 class MetricsLogger:
     """JSON-lines metric log (``<log_dir>/metrics.jsonl``), confusion-matrix
     PNGs (best effort), and MLflow when ``MLFLOW_TRACKING_URI`` is set and
-    ``mlflow`` imports."""
+    ``mlflow`` imports; with ``enabled`` False (a rank other than 0) it
+    writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.log_dir = log_dir
+        self.enabled = enabled
         os.makedirs(log_dir, exist_ok=True)
         self.fp = os.path.join(log_dir, 'metrics.jsonl')
-        self._mlflow = mlflow_module()
+        self._mlflow = mlflow_module() if enabled else None
         if self._mlflow is not None:
             try:
                 self._mlflow.enable_system_metrics_logging()
@@ -108,6 +121,8 @@ class MetricsLogger:
                 logger.debug(f'mlflow system metrics unavailable: {e}')
 
     def log(self, metrics: dict[str, float], step: int) -> None:
+        if not self.enabled:
+            return
         with open(self.fp, 'a') as f:
             f.write(json.dumps({'step': step, 'time': time.time(), **metrics}) + '\n')
         if self._mlflow is not None:
@@ -116,6 +131,8 @@ class MetricsLogger:
     def log_confusion(self, cmat: np.ndarray, epoch: int, prefix: str) -> dict[str, float]:
         """Accuracy and kappa of one confusion matrix, logged (with its
         figure, ``<prefix>_conf_mats/<epoch:04d>.png``) and returned."""
+        if not self.enabled:
+            return {}
         return log_aux_metrics(cmat, epoch, prefix, artifact_dir=self.log_dir)
 
     def last_val_metrics(self) -> dict[str, float]:
@@ -235,6 +252,9 @@ class Trainer:
     shadow_eval_transport: Optional[str] = None
     # The card when None and the data module's device is; raises without one.
     device: torch.device | str | None = None
+    # The data-parallel group (``parallel.mesh.make_mesh``), or None: this
+    # rank's device is the mesh's.
+    mesh: Optional[pmesh.Mesh] = None
 
     state: TrainState = field(default=None, repr=False)
     current_epoch: int = 0
@@ -247,9 +267,12 @@ class Trainer:
                 raise ValueError(f'unknown {name} {getattr(self, name)!r} (None, "q16" or "q8")')
         if self.precision not in ('float32', 'bfloat16'):
             raise ValueError(f'precision must be float32 or bfloat16, got {self.precision!r}')
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device if self.device is not None else self.datamodule.device)
         self.model.to(self.device)
-        self.metrics_logger = MetricsLogger(self.log_dir)
+        self.primary = self.mesh is None or self.mesh.is_primary
+        self.metrics_logger = MetricsLogger(self.log_dir, enabled=self.primary)
         self.early_stopping = EarlyStopping(patience=self.early_stopping_patience)
         self.plateau = PlateauController(base_lr=self.lr) if self.scheduler == 'plateau' else None
         schedule = exp_warmup_schedule(self.lr, self.warmup_steps, self.tau) if self.scheduler == 'expdecay' else self.lr
@@ -261,6 +284,7 @@ class Trainer:
             flip_polarity=self.flip_polarity, label_smoothing=self.label_smoothing,
             ema_decay=None if self.ema_offload else self.ema_decay, ema_start_step=self.ema_start_step,
             compute_dtype=torch.bfloat16 if self.precision == 'bfloat16' else None, family=self.family,
+            mesh=self.mesh,
         )
         self._eval_step = make_eval_step(self.model, self.num_classes, family=self.family)
         self.ring = StagingRing(self.stage_ring, self.device)
@@ -275,6 +299,10 @@ class Trainer:
         if self.state is not None:
             return
         self.state = init_train_state(self.model, self.opt, ema=self.ema_decay is not None and not self.ema_offload)
+        if self.mesh is not None:
+            # Every rank starts from the same seeded state: checked, not sent.
+            pmesh.replicate(self.mesh, [self.state.params, self.state.batch_stats])
+            pmesh.warmup_collectives(self.mesh)
         if self.ema_decay is not None and self.ema_offload and self.host_ema is None:
             self.host_ema = {k: p.detach().cpu().numpy().copy() for k, p in self.state.params.items()}
         n_params = sum(p.numel() for p in self.state.params.values())
@@ -293,19 +321,34 @@ class Trainer:
         y = np.concatenate([y, np.full((target - B, *y.shape[1:]), -1, y.dtype)], axis=0)
         return x, y, B
 
-    @staticmethod
-    def _batch_target(B: int, configured: int | None) -> int | None:
+    def _batch_target(self, B: int, configured: int | None, whole: bool = False) -> int | None:
         """The rows a batch of ``B`` real rows is padded to: the configured
-        loader batch size (one batch shape per phase)."""
+        loader batch size (one batch shape per phase); a loader's ``whole``
+        batch over a group that splits batches is rounded up to the data
+        axis, as the JAX trainer rounds each loading process's share of it
+        (a process that loads its own rows holds a share of 1)."""
         target = max(B, int(configured)) if configured is not None else B
+        if whole and self._split():
+            n_data = self.mesh.shape[pmesh.DATA_AXIS]
+            target = -(-target // n_data) * n_data
         return None if target == B else target
 
+    def _split(self) -> bool:
+        """Whether a rank keeps its block of each loader batch (one launch
+        over N devices) rather than the whole of it."""
+        return self.mesh is not None and not self.mesh.per_process_batches
+
     def _stage(self, x: dict, y: np.ndarray, batch_size: int | None, transport: str | None = None,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, rank_rows: bool = False):
         """Pad a host batch, write it into the next ring slot (cast to
         ``dtype``, or encoded by ``transport``) and copy it to the device.
-        Returns ((x, y) on the device, real rows)."""
-        x, y, B = self._pad_batch(x, y, self._batch_target(y.shape[0], batch_size))
+        With ``rank_rows`` the batch is a loader's whole batch: padded to the
+        data axis, of which this rank keeps its block where the group splits
+        batches (``_split``). Returns ((x, y) on the device, real rows of
+        the whole batch)."""
+        x, y, B = self._pad_batch(x, y, self._batch_target(y.shape[0], batch_size, whole=rank_rows))
+        if rank_rows and self._split():
+            x, y = pmesh.shard_batch(self.mesh, (x, y))
         j = self.ring.claim()
         y_buf = self.ring.buffer(j, 'labels', torch.float32, y.shape)
         np.copyto(y_buf.numpy(), y, casting='same_kind')
@@ -334,7 +377,9 @@ class Trainer:
         if self.masker is not None:
             validate_batch(x)
         dtype = torch.bfloat16 if self.precision == 'bfloat16' else torch.float32
-        return self._stage(x, y, self.datamodule.batch_size, self.input_transport, dtype)[0]
+        # Over a group the loader's batch is this rank's own rows already.
+        rows = getattr(self.datamodule, 'rank_batch_size', self.datamodule.batch_size)
+        return self._stage(x, y, rows, self.input_transport, dtype)[0]
 
     def _progress(self, it, desc: str):
         """Smoothed tqdm progress (the reference's CustomTQDMProgressBar);
@@ -501,7 +546,7 @@ class Trainer:
 
         n = 0
         for x, y in loader:
-            batch, _ = self._stage(x, y, batch_size, self.eval_transport)
+            batch, _ = self._stage(x, y, batch_size, self.eval_transport, rank_rows=True)
             Bp = int(batch[1].shape[0])
             for key in keys:
                 present = None if key is None else self._present(key, batch[0], Bp)
@@ -511,14 +556,18 @@ class Trainer:
                 drain()
         drain()
         self.ring.release()
-
-        def wmean(pairs):
-            total = sum(c for _, c in pairs)
-            if not pairs or total == 0:
-                return float('nan')
-            return float(sum(l * c for l, c in pairs) / total)
-
-        return {k: (wmean(losses[k]), cmats[k]) for k in keys}
+        # Per key: sum(loss x scored epochs), scored epochs, the matrix.
+        sums = np.array([[sum(l * c for l, c in losses[k]), sum(c for _, c in losses[k]), *cmats[k].ravel()]
+                         for k in keys], np.float64)
+        if self.mesh is not None:
+            # A rank's part of the eval matrix, summed over the group (exact:
+            # the counts are integers far below 2**53).
+            sums = pmesh.all_reduce_sum(torch.from_numpy(sums).to(self.device)).cpu().numpy()
+        out = {}
+        for k, (total_loss, total, *cmat) in zip(keys, sums):
+            loss = float('nan') if total == 0 else float(total_loss / total)
+            out[k] = (loss, np.rint(cmat).astype(np.int64).reshape(cmats[k].shape))
+        return out
 
     def _subset_matrix(self, ds_name: str, mode: str) -> list[tuple[str, ...]]:
         """Signal subsets to evaluate per dataset (the reference's
@@ -653,11 +702,16 @@ class Trainer:
                 variants[f'preds_{ECG}_{THX}'] = (ECG, THX)
         for x, y in loader:
             outputs['labels'].append(np.asarray(y))
-            batch, B = self._stage(x, y, None)  # one copy, every variant
+            # One copy, every variant; over a group that splits batches this
+            # rank predicts its block and the blocks are gathered.
+            batch, B = self._stage(x, y, None, rank_rows=True)
+            Bp = int(batch[1].shape[0])
             for name, key in variants.items():
-                present = None if key is None else self._present(key, batch[0], B)
-                out = self._eval_step(params, batch, present)
-                outputs.setdefault(name, []).append(out['preds'].cpu().numpy()[:B])
+                present = None if key is None else self._present(key, batch[0], Bp)
+                preds = self._eval_step(params, batch, present)['preds']
+                if self._split():
+                    preds = pmesh.gather_rows(self.mesh, preds)
+                outputs.setdefault(name, []).append(preds.cpu().numpy()[:B])
         self.ring.release()
         return {k: np.concatenate(v, axis=0) for k, v in outputs.items()}
 
@@ -675,4 +729,7 @@ class Trainer:
 
         self.ensure_state()
         state_dict = {**self.model.state_dict(), **self._eval_params()}
-        save_checkpoint_folder(folder, config, state_dict)
+        if self.primary:
+            save_checkpoint_folder(folder, config, state_dict)
+        if self.mesh is not None:
+            pmesh.barrier()

@@ -11,7 +11,11 @@ signal) row's sign with probability 0.5.
 
 Both draw from the ``torch.Generator`` they are given, on the batch's
 device, never from the global stream. The streams are torch's, not JAX's,
-so the two packages drop and flip different rows for the same seed.
+so the two packages drop and flip different rows for the same seed. With
+``rows=(start, total)`` a rank of a data-parallel group holds rows
+``start:start + B`` of a global batch of ``total``: it draws for all
+``total`` rows and keeps its own, so the group drops and flips what one
+card does on the global batch.
 """
 
 from __future__ import annotations
@@ -57,10 +61,12 @@ class SignalMasker:
                                     torch.tensor(eligible).to(device))
         return self._constants[key]
 
-    def __call__(self, generator: torch.Generator, signals: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    def __call__(self, generator: torch.Generator, signals: dict[str, torch.Tensor],
+                 rows: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
         names = list(signals)
         first = signals[names[0]]
         B, dev = first.shape[0], first.device
+        start, total = rows if rows is not None else (0, B)
         z_BC = torch.stack([torch.isinf(signals[n][:, 0]) for n in names], dim=-1)  # True = missing
         p, eligible = self._per_signal(tuple(names), dev)
 
@@ -70,10 +76,10 @@ class SignalMasker:
         else:
             weights = (~z_BC).to(torch.float32) * (1.0 - p)
 
-        keep_BC = torch.rand((B, len(names)), generator=generator, device=dev) < (1.0 - p)
+        keep_BC = torch.rand((total, len(names)), generator=generator, device=dev)[start : start + B] < (1.0 - p)
         # One survivor per night by the Gumbel-max draw over log(weights).
         has_backup = weights.sum(dim=-1) > 0
-        u = torch.rand((B, len(names)), generator=generator, device=dev)
+        u = torch.rand((total, len(names)), generator=generator, device=dev)[start : start + B]
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
         scores = torch.where(weights > 0, torch.log(weights.clamp_min(1e-30)) + gumbel, -torch.inf)
         survivor_BC = torch.nn.functional.one_hot(scores.argmax(dim=-1), len(names)).bool()
@@ -85,10 +91,13 @@ class SignalMasker:
         return {n: torch.where(m_BC[:, i, None], signals[n], NEG_INF) for i, n in enumerate(names)}
 
 
-def invert_signals(generator: torch.Generator, signals: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def invert_signals(generator: torch.Generator, signals: dict[str, torch.Tensor],
+                   rows: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """Flip each (night, signal) row's polarity with probability 0.5."""
     out = {}
     for name, x_BT in signals.items():
-        flip = torch.rand((x_BT.shape[0], 1), generator=generator, device=x_BT.device) < 0.5
+        B = x_BT.shape[0]
+        start, total = rows if rows is not None else (0, B)
+        flip = torch.rand((total, 1), generator=generator, device=x_BT.device)[start : start + B] < 0.5
         out[name] = x_BT * torch.where(flip, -1.0, 1.0).to(x_BT.dtype)
     return out

@@ -25,9 +25,11 @@ def confusion_matrix(logits_or_preds: torch.Tensor, labels: torch.Tensor, num_cl
 
 
 def cross_entropy_ignore_index(logits_NC: torch.Tensor, labels_N: torch.Tensor,
-                               label_smoothing: float = 0.0) -> torch.Tensor:
+                               label_smoothing: float = 0.0, count: torch.Tensor | None = None) -> torch.Tensor:
     """Mean cross-entropy over the labels >= 0, in f32 whatever the logits'
-    dtype; with ``label_smoothing`` the mix ``(1 - s) nll + s mean(-log p)``."""
+    dtype; with ``label_smoothing`` the mix ``(1 - s) nll + s mean(-log p)``.
+    ``count`` replaces the number of labels >= 0 as the divisor: a rank of a
+    data-parallel group divides its sum by the global batch's count."""
     labels = labels_N.to(torch.int64)
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
@@ -39,4 +41,4 @@ def cross_entropy_ignore_index(logits_NC: torch.Tensor, labels_N: torch.Tensor,
         smooth = -log_probs.mean(dim=-1)
         nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / (valid.sum() if count is None else count).clamp_min(1)

@@ -29,6 +29,24 @@ as they were. In f32 the forward and the backward run in full f32
 convs in TF32. The forward and the optimizer run inside ``record_function``
 spans (``train_step/forward``, ``train_step/optimizer``) that
 ``profile_train`` reads; the backward runs on autograd's own thread.
+
+Over a data-parallel group (``mesh``, ``parallel.mesh``) each rank holds its
+block of the global batch, and the step computes what the JAX step computes
+on the sharded global batch:
+
+- the loss is the mean over the global batch's scored epochs: each rank
+  divides its sum by the global count (one ``all_reduce``), and the
+  gradients are summed across the group (one ``all_reduce`` of a flat
+  buffer). A mean of per-rank means would weight ranks with more ``-1``
+  labels wrongly. The clip, AdamW and the EMA then run on the same numbers
+  on every rank, whose parameters stay bit-equal;
+- the flip and the masker draw for the whole global batch from the step's
+  seeds and keep the rank's rows, as one card draws;
+- batch norm's statistics are the global batch's (``models.norms``);
+- the loss and the confusion matrix are summed across the group;
+- dropout draws per rank (rank 0 from the step's seed, rank r from a seed
+  derived from it and r), so a group with dropout on is not the one-card
+  step on the global batch: the JAX package draws one global mask.
 """
 
 from __future__ import annotations
@@ -43,6 +61,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..ops.q8_transport import dequant_batch, is_encoded_batch
+from ..parallel import mesh as pmesh
 from ..utils import full_f32
 from .masker import SignalMasker, invert_signals
 from .metrics import confusion_matrix, cross_entropy_ignore_index
@@ -214,6 +233,7 @@ def make_train_step(
     ema_start_step: int = 0,
     compute_dtype: torch.dtype | None = None,
     family: str = 'wav2sleep',
+    mesh: pmesh.Mesh | None = None,
 ) -> Callable:
     """``train_step(state, (x, y), seed) -> (state, metrics)``.
 
@@ -222,8 +242,14 @@ def make_train_step(
     ``compute_dtype=torch.bfloat16`` runs the forward and the backward on
     bf16 copies of the parameters (cast inside the loss), so the gradients
     and the update stay f32. The state is updated in place and returned.
+    With ``mesh`` the batch is this rank's block of the global batch (every
+    rank's block the same size) and the step runs over the group; its model
+    axis must be 1, as it is for this model family.
     """
+    if mesh is not None and mesh.model != 1:
+        raise ValueError(f'model={mesh.model}: the model axis is 1 for this model family')
     low = compute_dtype is not None and compute_dtype != torch.float32
+    group = mesh is not None and torch.distributed.is_initialized()
 
     def loss_and_grads(state: TrainState, x: dict, y: torch.Tensor):
         leaves = list(state.params.values())
@@ -234,9 +260,16 @@ def make_train_step(
                 logits = torch.func.functional_call(model, cast, (xin,))
             else:
                 logits = model(_model_input(x, family))
-            loss = cross_entropy_ignore_index(logits.reshape(-1, num_classes), y.reshape(-1), label_smoothing)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return loss.detach(), logits.detach(), list(grads)
+            count = None
+            if group:
+                count = pmesh.all_reduce_sum((y >= 0).sum())
+            loss = cross_entropy_ignore_index(logits.reshape(-1, num_classes), y.reshape(-1), label_smoothing,
+                                              count=count)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True))
+        if group:
+            flat = pmesh.all_reduce_sum(torch._utils._flatten_dense_tensors(grads))
+            grads = list(torch._utils._unflatten_dense_tensors(flat, grads))
+        return loss.detach(), logits.detach(), grads
 
     def train_step(state: TrainState, batch, seed: int):
         x, y = batch
@@ -246,12 +279,16 @@ def make_train_step(
             x = dequant_batch(x)
         dev = y.device
         seed_flip, seed_mask, seed_drop = step_seeds(seed, state.step)
+        rows = pmesh.batch_rows(mesh, int(y.shape[0])) if group else None
         if flip_polarity:
-            x = invert_signals(_generator(dev, seed_flip), x)
+            x = invert_signals(_generator(dev, seed_flip), x, rows)
         if masker is not None:
-            x = masker(_generator(dev, seed_mask), x)
+            x = masker(_generator(dev, seed_mask), x, rows)
+        if group and mesh.data_index:
+            seed_drop = pmesh.seeded_int(seed_drop, mesh.data_index)
         model.train()
-        with contextlib.nullcontext() if low else full_f32(), _seeded_dropout(dev, seed_drop):
+        with contextlib.nullcontext() if low else full_f32(), _seeded_dropout(dev, seed_drop), \
+                pmesh.active(mesh if group else None):
             loss, logits, grads = loss_and_grads(state, x, y)
         with record_function('train_step/optimizer'), torch.no_grad():
             grad_norm = global_norm(grads)
@@ -264,7 +301,13 @@ def make_train_step(
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, torch._foreach_mul(leaves, 1.0 - ema_decay))
         state.step += 1
-        return state, {'loss': loss, 'cmat': confusion_matrix(logits, y, num_classes), 'grad_norm': grad_norm}
+        cmat = confusion_matrix(logits, y, num_classes)
+        if group:
+            # The loss is each rank's share of the global mean; one
+            # all_reduce sums it and the confusion matrix (exact in f64).
+            both = pmesh.all_reduce_sum(torch.cat([loss.double().reshape(1), cmat.double().reshape(-1)]))
+            loss, cmat = both[0].float(), both[1:].round().long().reshape(cmat.shape)
+        return state, {'loss': loss, 'cmat': cmat, 'grad_norm': grad_norm}
 
     return train_step
 
