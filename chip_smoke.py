@@ -199,15 +199,55 @@ Phases (any failure raises, so the script exits non-zero):
    phase 9's CSV bytes; ``--data-parallel 2`` raises on a one-card machine.
    Prints a ``parallel`` JSON line. True multi-card runs and NCCL beyond
    world size 1 are not exercised.
+17. EOG: wav2sleep-eog at full width (``flagship_model(variant='eog')``:
+   EOG-L/EOG-R at 4,096 samples an epoch, 10-block encoders, 5 classes).
+   (a) In f32 on two one-hour nights (one without EOG-R), K1 against the
+   plain path within phase 6's 1e-3; in bf16 on 8 ten-hour nights, the K1
+   path, the kernel-statistics path and the plain path, each within twice
+   the forward's own bf16-vs-f32 difference, with K1 (K2) launched at every
+   kernel-eligible conv, counted from the model (58); forward times. Then
+   K1 against its plain version at every EOG shape (``EOG_SHAPES``: each
+   (C_in, C_out, stride) at its first length, blocks 0 and 1 at both of
+   theirs: 16 channels over 4,915,200 and 2,457,600 samples) in f32 and
+   bf16, identity and norm + gelu, timed in bf16 beside its bound and
+   ``F.conv1d``; K1, K2 and ``F.conv1d`` summed over the 58 convs of the
+   bf16 forward. (b) 8 EOG EDF nights of 10 h at MESA's EOG rate
+   (``data.synth.write_nights(kind='eog')``, 256 Hz, off the 136.53 Hz
+   grid), an EOG checkpoint folder, ``load_model`` in bf16, 2 passes each
+   over q8 and q16: 1,200 epochs a night in 0..4, K1 58 a batch; then the
+   serving CLI with q16 (its CSVs equal the q16 pass), q8 (equal to the q8
+   pass) and f32. (c) The EOG training step, step 1 on K1 against the plain
+   path under torch's default TF32 flags: bf16 at the drive's batch of 4
+   over q8 (loss and gradient norm within twice the step's bf16 error, from
+   the same step in f32) and f32 at the config's batch of 16 (loss,
+   gradient norm and each gradient within ``TRAIN_TOL``), K1 116 a step,
+   peak memory printed. Prints an ``eog`` JSON line.
+18. Drive: ``python -m wav2sleep_tpu_torch.convergence_drive`` at reduced
+   depth (``DRIVE_CUTS``): ``--prepare`` of 16 ten-hour cardio nights, one
+   process a core, then the drive (the train CLI supervised, counted by
+   ``K1_RUNNER``; plateau scheduler, EMA, shadow q16 eval, bf16 over q8,
+   best restored, test pass, export, ``predict_on_folder``). Hard: every
+   epoch in metrics.jsonl with a finite ``val_loss``, its ``lr`` and its
+   ``val_loss_q16``; the run ended by early stopping or at the cap; the
+   best checkpoint restored before the test pass, whose losses a test pass
+   here from ``checkpoints/best`` repeats within ``DRIVE_TEST_TOL``; the
+   trainer's test predictions from there equal the exported model's
+   ``predict_on_folder`` CSVs off near-ties; K1 160 a micro-step at least.
+   Printed: early stopping, the plateau cut, best-versus-last, kappa. Then
+   ``q8_quality`` (rows with finite values), ``eval_matrix_bench --reps 1``
+   and ``pipeline_scale_bench --epochs 2`` on the drive's corpus. Prints a
+   ``drive`` JSON line.
 
 Serving throughput is all nights served over all the time the passes took,
 the first pass included. Each path's kernel launches are counted from 0 just
-before it runs. The ``train``, ``families``, ``trainer``, ``api``, ``ingest`` and
-``parallel`` lines come before the ``kernels`` line; the line before the last
-is a JSON object describing the kernels (K1's and K2's entries also carry
-``train_launches``, per training step, K1's ``trainer_launches`` and
-``ingest_launches``, per training micro-step of phases 13 and 15, and
-``api_launches``, phase 14's f32 ``predict_on_folder`` run, and K3's
+before it runs. The ``train``, ``families``, ``trainer``, ``api``, ``ingest``,
+``parallel``, ``eog`` and ``drive`` lines come before the ``kernels`` line; the
+line before the last is a JSON object describing the kernels (K1's and K2's
+entries also carry ``train_launches``, per training step, K1's
+``trainer_launches`` and ``ingest_launches``, per training micro-step of
+phases 13 and 15, ``api_launches``, phase 14's f32 ``predict_on_folder``
+run, ``eog_launches``, per bf16 EOG forward of phase 17, and
+``drive_launches``, phase 18's fit with its eval and test passes, and K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -219,6 +259,7 @@ import datetime
 import json
 import os
 import re
+import shutil
 import sys
 import tempfile
 import time
@@ -330,12 +371,14 @@ def phase_build(k1, k3, cv, native):
                 f'{min(smem, default=0)}-{max(smem, default=0)} bytes static smem, {spills} bytes spilled')
 
 
-def phase_k1(torch, F, k1, block_stats):
-    """K1 vs plain at every flagship shape; returns (max f32 |d|, the line's call)."""
+def phase_k1(torch, F, k1, block_stats, shapes=KERNEL_SHAPES, tag='K1', timed=('float32', 'bfloat16')):
+    """K1 vs plain at every flagship shape (or ``shapes``, logged as
+    ``tag``), timed in the ``timed`` dtypes; returns (max f32 |d|, the
+    line's call: 16->16 s1 bf16 identity at its first length)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     max_f32_err, line = 0.0, None
     slower = {'float32': ([], []), 'bfloat16': ([], [])}
-    for ci, co, stride, T in KERNEL_SHAPES:
+    for ci, co, stride, T in shapes:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         w32 = (torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5
         b32 = torch.randn((co,), device='cuda', generator=gen) * 0.1
@@ -369,6 +412,10 @@ def phase_k1(torch, F, k1, block_stats):
                     tol = '<=2^-6(|y|+rms)'
                 if not ok:
                     raise AssertionError(f'K1 disagrees with its plain version at {ci}->{co} s{stride} {name} {phi}')
+                if name not in timed:
+                    log(f'{tag} {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok')
+                    del got, want, diff
+                    continue
                 ms = both_ms(lambda: k1.conv_k3(x, w, *args))
                 plain_ms = both_ms(lambda: k1.conv_k3_reference(x, w, *args))
                 lib_ms = None
@@ -383,11 +430,11 @@ def phase_k1(torch, F, k1, block_stats):
                         if ms[i] > lib_ms[i]:
                             slower[name][i].append(f'{ci}->{co} s{stride}')
                 bound_ms, bound_by = conv_bound(BATCH, T, ci, co, stride, name, phi != 'identity', False)
-                log(f'K1 {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok; '
+                log(f'{tag} {name:8s} {phi:9s} {ci:3d}->{co:3d} s{stride} T={T}: max|d|={err:.2e} ({tol}) ok; '
                     f'ms one call (back to back): K1 {fmt(ms)}, plain {fmt(plain_ms)}, F.conv1d '
                     f'{"-" if lib_ms is None else fmt(lib_ms)}, bound {bound_ms:.4f} ({bound_by}), '
                     f'{100 * bound_ms / ms[0]:.1f}% ({100 * bound_ms / ms[1]:.1f}%) of the bound')
-                if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'identity'):
+                if (ci, co, stride, name, phi) == (16, 16, 1, 'bfloat16', 'identity') and line is None:
                     line = dict(ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=lib_ms[0], call_ms=ms[1], plain_call_ms=plain_ms[1],
                                 library_call_ms=lib_ms[1])
@@ -395,9 +442,9 @@ def phase_k1(torch, F, k1, block_stats):
         del x32, x, mu, inv
         torch.cuda.empty_cache()
     for name, short in (('bfloat16', 'bf16'), ('float32', 'f32')):
-        for how, shapes in zip(('one call', 'back to back'), slower[name]):
-            log(f'K1 {short} identity slower than F.conv1d at {len(shapes)} of {len(KERNEL_SHAPES)} shapes ({how})'
-                f'{": " + ", ".join(shapes) if shapes else ""}')
+        for how, calls in zip(('one call', 'back to back'), slower[name] if name in timed else ()):
+            log(f'{tag} {short} identity slower than F.conv1d at {len(calls)} of {len(shapes)} shapes ({how})'
+                f'{": " + ", ".join(calls) if calls else ""}')
     return max_f32_err, line
 
 
@@ -460,14 +507,17 @@ def phase_k2(torch, k1, block_stats):
     return max_f32_err, line
 
 
-def phase_forward_convs(torch, F, k1, layers, wav2sleep):
+def phase_forward_convs(torch, F, k1, layers, wav2sleep, variant='cardio'):
     """K1, K2 and ``F.conv1d`` summed over the k3 convs of one bf16
-    flagship forward (8 ten-hour nights), each call timed on the inputs the
-    forward gives it, beside the sum of the calls' bounds."""
-    model = wav2sleep.flagship_model(dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    flagship forward of ``variant`` (8 ten-hour nights), each call timed on
+    the inputs the forward gives it, beside the sum of the calls' bounds.
+    Returns the sums: calls, bytes, FLOPs, bound ms, and K1, K2 and
+    ``F.conv1d`` ms (one call, back to back)."""
+    model = wav2sleep.flagship_model(variant=variant, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    n_calls = sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D))
     g = torch.Generator(device='cuda').manual_seed(4)
     xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).to(torch.bfloat16)
-          for c in SIGNALS}
+          for c in wav2sleep.VARIANTS[variant][1]}
     tot = dict.fromkeys(('calls', 'bytes', 'flops', 'bound'), 0.0)
     tot.update({k: np.zeros(2) for k in ('k1', 'k2', 'lib')})
 
@@ -489,14 +539,15 @@ def phase_forward_convs(torch, F, k1, layers, wav2sleep):
         model(xb)
     finally:
         layers.conv_k3 = k1.conv_k3
-    if tot['calls'] != 80:
-        raise AssertionError(f'{tot["calls"]:.0f} k3 convs in the flagship forward, expected 80')
+    if tot['calls'] != n_calls:
+        raise AssertionError(f'{tot["calls"]:.0f} k3 convs in the {variant} flagship forward, expected {n_calls}')
     k1_ms, k2_ms, lib_ms = (tot[k] for k in ('k1', 'k2', 'lib'))
-    log(f'K1/K2 over one bf16 flagship forward (B={BATCH} x {HOURS:g} h, 80 calls at their lengths), '
+    log(f'K1/K2 over one bf16 {variant} flagship forward (B={BATCH} x {HOURS:g} h, {n_calls} calls at their lengths), '
         f'ms one call (back to back): K1 {k1_ms[0]:.3f} ({k1_ms[1]:.3f}), '
         f'{100 * tot["bound"] / k1_ms[0]:.1f}% ({100 * tot["bound"] / k1_ms[1]:.1f}%) of the bound; '
         f'K2 {k2_ms[0]:.3f} ({k2_ms[1]:.3f}); F.conv1d {lib_ms[0]:.3f} ({lib_ms[1]:.3f}); '
         f'bound {tot["bound"]:.3f} ms ({tot["bytes"] / 1e9:.2f} GB, {tot["flops"] / 1e9:.1f} GFLOP)')
+    return tot
 
 
 def phase_k3(torch, k3):
@@ -695,11 +746,11 @@ class SyntheticQ8Nights:
         return self.n_epochs
 
 
-def check_hypnograms(out, names, n_epochs, what):
+def check_hypnograms(out, names, n_epochs, what, n_classes=4):
     if [fp for fp, _ in out] != names:
         raise AssertionError(f'{what}: nights missing from the output')
     for fp, hyp in out:
-        if hyp.shape != (n_epochs,) or hyp.min() < 0 or hyp.max() > 3:
+        if hyp.shape != (n_epochs,) or hyp.min() < 0 or hyp.max() >= n_classes:
             raise AssertionError(f'{what}: bad hypnogram for {fp}: shape {hyp.shape}, range {hyp.min()}..{hyp.max()}')
 
 
@@ -2438,6 +2489,394 @@ def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
     return line
 
 
+
+# Phase 17: wav2sleep-eog at full width. EOG-L/EOG-R at 4,096 samples an
+# epoch: ten blocks an encoder, the first two at C=16 over 4,915,200 and
+# 2,457,600 samples a ten-hour night.
+EOG_SIGNALS = ('EOG-L', 'EOG-R')
+EOG_CLASSES = 5
+EOG_NIGHTS = 8
+EOG_T0 = 4096 * 1200
+# (C_in, C_out, stride, T): every K1 shape of the EOG encoders at its first
+# length, and blocks 0 and 1 at both of theirs.
+EOG_SHAPES = [
+    (16, 16, 1, EOG_T0), (16, 16, 2, EOG_T0), (16, 16, 1, EOG_T0 // 2), (16, 16, 2, EOG_T0 // 2),
+    (16, 32, 1, EOG_T0 // 4), (32, 32, 1, EOG_T0 // 4), (32, 32, 2, EOG_T0 // 4), (32, 64, 1, EOG_T0 // 16),
+    (64, 64, 1, EOG_T0 // 16), (64, 64, 2, EOG_T0 // 16), (64, 128, 1, EOG_T0 // 64),
+    (128, 128, 1, EOG_T0 // 64), (128, 128, 2, EOG_T0 // 64),
+]
+EOG_TRAIN_BATCH_BF16, EOG_TRAIN_BATCH_F32 = 4, 16  # the drive's batch over q8; the config's f32 batch
+EOG_TRAIN_SEED = 19
+
+
+def _step_once(torch, k1, k3, layers, s, batch, seed, plain: bool):
+    """Step 1 of setup ``s`` on ``batch``: loss, gradient norm, K1/K2/K3
+    launches, peak GiB and Adam's first moments (0.1 of the clipped
+    gradient), on the kernel path or the plain path."""
+    torch.cuda.reset_peak_memory_stats()
+    with plain_convs(layers, k1) if plain else contextlib.nullcontext():
+        zero_counts(k1, k3)
+        _, m = s.step(s.state, batch, seed)
+        torch.cuda.synchronize()
+        out = dict(loss=float(m['loss']), grad_norm=float(m['grad_norm']), launches=counts(k1, k3),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out, [mu.cpu() for mu in s.state.opt_state.mu]
+
+
+def phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, card, work, tf32_defaults):
+    """Phase 17: wav2sleep-eog at full width. (a) The bf16 B=8 forward on
+    ten-hour nights on K1 against the plain path, with kernel statistics on,
+    K1 per EOG shape against plain, and K1, K2 and ``F.conv1d`` over the
+    forward's convs; (b) EOG EDF nights served over q8 and q16 from a
+    checkpoint folder and through the serving CLI; (c) the training step in
+    bf16 over q8 (the drive's batch) and in f32 (the config's batch), step 1
+    on K1 against the plain path. Returns the ``eog`` line and K1's launches
+    per forward."""
+    from wav2sleep_tpu_torch import api, checkpoint, serve
+    from wav2sleep_tpu_torch.data import synth
+    from wav2sleep_tpu_torch.instantiate import target_config
+    from wav2sleep_tpu_torch.ops import q8_transport as q8
+
+    t_phase = time.time()
+    line = {'card': card}
+    S = int(round(HOURS * 120))
+    model = wav2sleep.flagship_model(variant='eog', dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    n_k1 = sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D))
+    log(f'eog: the flagship wav2sleep-eog has {n_k1} kernel-eligible k3 convs (2 encoders x 10 blocks x 3, less the '
+        f'two C_in=1 entry convs)')
+
+    # (a) f32 at phase 6's size and gate, then bf16 at serving size.
+    g = torch.Generator(device='cuda').manual_seed(5)
+    x = {c: torch.randn((2, grid_length(c, 1.0)), device='cuda', generator=g) for c in EOG_SIGNALS}
+    x['EOG-R'][1] = -torch.inf  # an absent channel
+    with torch.inference_mode():
+        zero_counts(k1, k3)
+        kern = model(x)
+        torch.cuda.synchronize()
+        f32_launches = counts(k1, k3)
+        with plain_convs(layers, k1):
+            plain = model(x)
+    err = float((kern - plain).abs().max())
+    log(f'eog f32 B=2 S=120: logits {tuple(kern.shape)}, kernel vs plain max|d|={err:.3e} (atol=rtol={MODEL_TOL:g}); '
+        f'launches {f32_launches}')
+    if f32_launches != {'K1': n_k1, 'K2': 0, 'K3': 0} or kern.shape != (2, 120, EOG_CLASSES):
+        raise AssertionError(f'eog f32: launches {f32_launches}, logits {tuple(kern.shape)}')
+    torch.testing.assert_close(kern, plain, atol=MODEL_TOL, rtol=MODEL_TOL)
+    del kern, plain, x
+
+    g = torch.Generator(device='cuda').manual_seed(6)
+    xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).to(torch.bfloat16)
+          for c in EOG_SIGNALS}
+    out, seen = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for name, on, plain_path in (('kernel', False, False), ('stats', True, False), ('plain', False, True)):
+            with kernel_stats(bd, on), plain_convs(layers, k1) if plain_path else contextlib.nullcontext():
+                zero_counts(k1, k3)
+                out[name] = model(xb)
+                torch.cuda.synchronize()
+                seen[name] = counts(k1, k3)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        ref32 = model({c: v.float() for c, v in xb.items()})
+        times = {'kernel': [], 'plain': []}
+        for name in ('kernel', 'plain', 'plain', 'kernel'):
+            with plain_convs(layers, k1) if name == 'plain' else contextlib.nullcontext():
+                times[name].append(cuda_ms(lambda: model(xb), reps=3, warmup=1))
+    d_bf16 = float((out['kernel'] - ref32).abs().max())
+    d_plain = float((out['kernel'] - out['plain']).abs().max())
+    d_stats = float((out['stats'] - out['kernel']).abs().max())
+    agree = float((out['kernel'].argmax(-1) == out['plain'].argmax(-1)).float().mean())
+    log(f'eog bf16 B={BATCH} x {HOURS:g} h: logits {tuple(out["kernel"].shape)}; kernel vs plain max|d|={d_plain:.3e}, '
+        f'kernel statistics on vs off {d_stats:.3e} (bound 2 x the forward\'s bf16-vs-f32 difference {d_bf16:.3e}); '
+        f'argmax agreement with plain {agree:.5f}; launches {seen}; peak device memory {fwd_peak:.2f} GiB; forward ms '
+        f'K1 path {", ".join(f"{t:.2f}" for t in times["kernel"])}, plain path '
+        f'{", ".join(f"{t:.2f}" for t in times["plain"])} (run kernel, plain, plain, kernel)')
+    if seen != {'kernel': {'K1': n_k1, 'K2': 0, 'K3': 0}, 'stats': {'K1': 0, 'K2': n_k1, 'K3': 0},
+                'plain': {'K1': 0, 'K2': 0, 'K3': 0}}:
+        raise AssertionError(f'eog bf16: launches {seen}, expected {n_k1} K1 (K2 with kernel statistics)')
+    if out['kernel'].shape != (BATCH, S, EOG_CLASSES) or not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError('eog bf16: logits of the wrong shape or not finite')
+    if not (d_plain <= 2 * d_bf16 and d_stats <= 2 * d_bf16):
+        raise AssertionError(f'eog bf16: kernel path {d_plain:.3e} / statistics {d_stats:.3e} from plain, bound '
+                             f'{2 * d_bf16:.3e}')
+    line['forward'] = dict(k1_launches=n_k1, f32_err=err, bf16_kernel_vs_plain=d_plain, bf16_stats_vs_off=d_stats,
+                           bf16_vs_f32=d_bf16, ms=times, peak_gib=fwd_peak)
+    del out, ref32, xb
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        eog_err, eog_k1_line = phase_k1(torch, F, k1, bd.block_stats, shapes=EOG_SHAPES, tag='K1 eog',
+                                        timed=('bfloat16',))
+        tot = phase_forward_convs(torch, F, k1, layers, wav2sleep, variant='eog')
+    line['k1'] = dict(max_f32_err=eog_err, t0_call=eog_k1_line, forward_calls=int(tot['calls']),
+                      forward_k1_ms=list(tot['k1']), forward_k2_ms=list(tot['k2']), forward_conv1d_ms=list(tot['lib']),
+                      forward_bound_ms=tot['bound'], forward_gb=tot['bytes'] / 1e9, forward_gflop=tot['flops'] / 1e9)
+    torch.cuda.empty_cache()
+
+    # (b) EOG EDF nights at MESA's EOG rate, off the 136.53 Hz grid.
+    nights = os.path.join(work, 'eog_nights')
+    os.makedirs(nights)
+    t0 = time.time()
+    fps, _ = synth.write_nights(nights, EOG_NIGHTS, HOURS, seed=31, kind='eog')
+    log(f'eog serve: wrote {EOG_NIGHTS} EDF nights of {HOURS:g} h at {synth.RATES_EOG} '
+        f'({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) in {time.time() - t0:.1f} s (set-up)')
+    ckpt = os.path.join(work, 'eog_checkpoint')
+    cfg = wav2sleep.flagship_config(variant='eog')
+    checkpoint.save_checkpoint_folder(ckpt, target_config(**cfg), model.state_dict())
+    del model
+    served = api.load_model(ckpt, precision='bfloat16')
+    hyps, serve_line = {}, {}
+    for name, cls in (('q8', pipeline.StreamingPipelineQ8), ('q16', pipeline.StreamingPipelineQ16)):
+        pipe = cls(served, list(EOG_SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16')
+        if pipe.extractor._lib is None:
+            raise AssertionError(f'eog serve {name}: the native host library is not in use')
+        pipe.warmup()
+        pipe.fill_seconds = 0.0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(k1, k3)
+        walls, got = timed_passes(torch, pipe, fps, 2)
+        launches = counts(k1, k3)
+        check_hypnograms(got, fps, S, f'eog serve {name}', n_classes=EOG_CLASSES)
+        batches = 2 * -(-EOG_NIGHTS // BATCH)
+        if launches != {'K1': n_k1 * batches, 'K2': 0, 'K3': 0}:
+            raise AssertionError(f'eog serve {name}: launches {launches}, expected {n_k1 * batches} K1')
+        total = sum(walls)
+        serve_line[name] = dict(walls_s=walls, recordings_per_hour=3600 * 2 * EOG_NIGHTS / total,
+                                fill_s=pipe.fill_seconds, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f'eog serve {name} bf16 batch {BATCH} (load_model): 2 passes of {EOG_NIGHTS} EDF nights in '
+            f'{", ".join(f"{w:.3f}" for w in walls)} s, {serve_line[name]["recordings_per_hour"]:.0f} recordings/hour '
+            f'on {card}; producer filling {pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the '
+            f'wall); launches {launches}; peak {serve_line[name]["peak_gib"]:.2f} GiB; classes '
+            f'{sorted(set(np.concatenate([h for _, h in got]).tolist()))}')
+        hyps[name] = dict(got)
+        del pipe
+    agree = np.mean(np.concatenate([hyps['q8'][fp] == hyps['q16'][fp] for fp in fps]))
+    serve_line['q8_vs_q16_agreement'] = float(agree)
+    del served
+    for transport in ('q16', 'q8', 'f32'):
+        out_dir = os.path.join(work, f'eog_preds_{transport}')
+        t0 = time.time()
+        serve.main(['--input-folder', nights, '--output-folder', out_dir, '--model-folder', ckpt, '--batch-size',
+                    str(BATCH), '--max-length-hours', str(HOURS), *(['--transport', transport] * (transport != 'q16'))])
+        wall = time.time() - t0
+        same = 0
+        for fp in fps:
+            with open(os.path.join(out_dir, os.path.splitext(os.path.basename(fp))[0] + '.preds.csv')) as f:
+                lines = f.read().splitlines()
+            pred = np.array([int(row.rsplit(',', 1)[1]) for row in lines[1:]])
+            if lines[0] != 'Timestamp,Pred' or pred.shape != (S,) or pred.min() < 0 or pred.max() >= EOG_CLASSES:
+                raise AssertionError(f'eog serve cli --transport {transport}: bad CSV for {fp}')
+            if transport in hyps and not np.array_equal(pred, hyps[transport][fp]):
+                raise AssertionError(f'eog serve cli --transport {transport}: {fp} differs from the {transport} pass')
+            same += int((pred == hyps['q16'][fp]).sum())
+        serve_line[f'cli_{transport}_s'] = wall
+        log(f'eog serve cli --transport {transport}: {EOG_NIGHTS} CSV files of {S} rows in 0..{EOG_CLASSES - 1} in '
+            f'{wall:.1f} s{" equal to the pipeline pass" if transport in hyps else ""}; epochs equal to the q16 pass '
+            f'{same / (S * EOG_NIGHTS):.5f}')
+    line['serve'] = serve_line
+    shutil.rmtree(nights)
+
+    # (c) The training step under torch's default TF32 flags.
+    saved_flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    try:
+        train = {}
+        for precision, B, transport in (('bfloat16', EOG_TRAIN_BATCH_BF16, 'q8'),
+                                        ('float32', EOG_TRAIN_BATCH_F32, 'lossless')):
+            xs, ys = train_bench.example_batch(B, S, seed=EOG_TRAIN_SEED, signals='eog')
+            first, moments = {}, {}
+            runs = [('kernel', precision, False), ('plain', precision, True)]
+            if precision == 'bfloat16':
+                runs.append(('f32', 'float32', False))  # the same step in f32, for the bf16 error
+            for name, prec, plain_path in runs:
+                s = train_bench.build(prec, device='cuda', remat=True, ema=False, signals='eog')
+                batch = train_bench.device_batch(xs, ys, transport, s.dtype, s.device)
+                first[name], moments[name] = _step_once(torch, k1, k3, layers, s, batch, EOG_TRAIN_SEED, plain_path)
+                del s, batch
+                torch.cuda.empty_cache()
+            if first['kernel']['launches'] != {'K1': 2 * n_k1, 'K2': 0, 'K3': 0} or first['plain']['launches']['K1']:
+                raise AssertionError(f'eog train {precision}: launches {first}, expected {2 * n_k1} K1 (forward and '
+                                     'remat recompute)')
+            rel = {key: abs(first['kernel'][key] - first['plain'][key]) / abs(first['plain'][key])
+                   for key in ('loss', 'grad_norm')}
+            rel['gradients'] = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                                   for a, b in zip(moments['kernel'], moments['plain']))
+            if precision == 'float32':
+                bounds = dict.fromkeys(rel, TRAIN_TOL)
+            else:
+                # Phase 11 (c)'s bf16 bound: twice the larger of the step's
+                # |bf16 - f32| and 2^-8 |f32|, relative to the plain path.
+                bounds = {key: 2 * max(abs(first['kernel'][key] - first['f32'][key]), 2.0**-8 * abs(first['f32'][key]))
+                          / abs(first['plain'][key]) for key in ('loss', 'grad_norm')}
+                del rel['gradients']
+            log(f'eog train {precision} B={B} x {HOURS:g} h over {transport} (remat, masker, flip, torch\'s default TF32 '
+                f'flags): step 1 {first}; relative differences kernel vs plain {rel} (bounds {bounds})')
+            if not all(rel[k] <= bounds[k] for k in rel):
+                raise AssertionError(f'eog train {precision}: step 1 on K1 disagrees with the plain path: {rel}')
+            train[precision] = dict(batch=B, transport=transport, step1=first, rel_diff=rel, bounds=bounds)
+        line['train'] = train
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_flags
+    torch.cuda.empty_cache()
+    line['phase_s'] = time.time() - t_phase
+    log(f'eog: phase 17 in {line["phase_s"]:.1f} s')
+    return line, n_k1, tot
+
+
+# Phase 18: the drive at reduced depth (cuts listed in DRIVE_CUTS), then
+# q8_quality, eval_matrix_bench and pipeline_scale_bench on its corpus.
+DRIVE_NIGHTS, DRIVE_EPOCHS, DRIVE_EMA_START = 16, 16, 6
+DRIVE_CUTS = {
+    'nights': f'{DRIVE_NIGHTS} (128 at full size): 12 train, 2 val, 2 test',
+    'epochs': f'{DRIVE_EPOCHS} cap (60 at full size)',
+    'training.ema.start_step': f'{DRIVE_EMA_START} (50 at full size: the same 2 epochs, at 3 steps an epoch instead '
+                               'of 24)',
+    'q8_quality': '4 train and 4 eval nights of 2 h, 10 steps (10 and 8 of 6 h, 120 steps at full size)',
+    'eval_matrix_bench': '--reps 1 (3)', 'pipeline_scale_bench': '--epochs 2 (3) on the drive\'s corpus',
+}
+DRIVE_TEST_TOL = 1e-4  # the test pass's loss, the CLI's process against this one's (f32 eval, TF32 off)
+DRIVE_MARGIN = 1e-3  # near-ties: epochs whose top-two logits are closer are not compared
+# The train CLI with K1's launches counted and printed when the process ends.
+K1_RUNNER = '''
+import atexit, runpy, sys
+from wav2sleep_tpu_torch.ops import conv_k3
+atexit.register(lambda: print('K1_LAUNCHES', conv_k3.LAUNCHES, flush=True))
+sys.argv = ['wav2sleep_tpu_torch.train', *sys.argv[1:]]
+runpy.run_module('wav2sleep_tpu_torch.train', run_name='__main__', alter_sys=True)
+'''
+
+
+def phase_drive(torch, k1, card, work):
+    """Phase 18: ``convergence_drive --prepare`` and the drive at reduced
+    depth with its hard checks, then ``q8_quality``, ``eval_matrix_bench``
+    and ``pipeline_scale_bench`` at reduced depth. Returns the ``drive``
+    line and K1's launches in the drive's fit."""
+    from wav2sleep_tpu_torch import api, convergence_drive, eval_matrix_bench, pipeline_scale_bench, q8_quality
+    from wav2sleep_tpu_torch.config import compose
+    from wav2sleep_tpu_torch.instantiate import build_model
+    from wav2sleep_tpu_torch.train import __main__ as train_cli
+    from wav2sleep_tpu_torch.train.datamodule import SleepDataModule
+    from wav2sleep_tpu_torch.train.loop import Trainer
+
+    t_phase = time.time()
+    root, out = os.path.join(work, 'drive'), os.path.join(work, 'drive_out')
+    common = ['--root', root, '--nights', str(DRIVE_NIGHTS), '--hours', f'{TRAIN_HOURS:g}']
+    t0 = time.time()
+    convergence_drive.main(['--prepare', *common])
+    prepare_s = time.time() - t0
+    n_files = {split: len(os.listdir(os.path.join(root, 'data', 'mesa', split))) for split in ('train', 'val', 'test')}
+    log(f'drive: prepared {n_files} nights of {TRAIN_HOURS:g} h in {prepare_s:.1f} s ({os.cpu_count()} cores)')
+
+    t0 = time.time()
+    summary = convergence_drive.main([*common, '--epochs', str(DRIVE_EPOCHS), '--out', out,
+                                      f'training.ema.start_step={DRIVE_EMA_START}'], train_command=[sys.executable, '-c', K1_RUNNER])
+    drive_s = time.time() - t0
+    run_dir, ev = summary['run_dir'], summary['selection']
+    logs = ''.join(open(os.path.join(run_dir, f)).read() for f in sorted(os.listdir(run_dir))
+                   if f.startswith('supervised_attempt'))
+    launches = sum(int(v) for v in re.findall(r'^K1_LAUNCHES (\d+)$', logs, re.M))
+    rows = _jsonl(os.path.join(run_dir, 'metrics.jsonl'))
+    train_rows = [r for r in rows if 'train_loss' in r]
+    val_rows = [r for r in rows if 'val_loss' in r]
+    epochs = [r['step'] for r in val_rows]
+    if epochs != list(range(len(epochs))) or [r['step'] for r in train_rows] != epochs:
+        raise AssertionError(f'drive: epochs in metrics.jsonl: train {[r["step"] for r in train_rows]}, val {epochs}')
+    if not all(np.isfinite(r['val_loss']) for r in val_rows):
+        raise AssertionError(f'drive: a val_loss is not finite: {[r["val_loss"] for r in val_rows]}')
+    if not all('lr' in r for r in train_rows) or not all('val_loss_q16' in r for r in val_rows):
+        raise AssertionError('drive: an epoch without lr or val_loss_q16')
+    stopped = re.search(r'Early stopping at epoch (\d+)', logs)
+    if not (len(epochs) == DRIVE_EPOCHS or (stopped and int(stopped.group(1)) == epochs[-1])):
+        raise AssertionError(f'drive: {len(epochs)} epochs of a {DRIVE_EPOCHS} cap without early stopping')
+    if 'Restored best (lowest val_loss) checkpoint.' not in logs:
+        raise AssertionError('drive: the best checkpoint was not restored before the test pass')
+    micro_steps = train_rows[-1]['lr_step']
+    if not launches >= 160 * micro_steps:
+        raise AssertionError(f'drive: K1 launched {launches} times over {micro_steps} training micro-steps (160 each)')
+
+    # The test pass ran on the best weights: this process's test pass from
+    # checkpoints/best gives the CLI's test loss, and the trainer's
+    # predictions equal the exported model's through predict_on_folder.
+    overrides = ['datasets=mesa', 'inputs=cardiorespiratory/all', f'max_length_hours={TRAIN_HOURS:g}',
+                 f'data_location={os.path.join(root, "data")}', 'training.ema.enabled=true', 'test=true']
+    cfg = compose(train_cli.CONFIG_DIR.as_posix(), 'main', overrides)
+    dm = SleepDataModule(columns=list(cfg['inputs']['signal_map']), data_location=cfg['data_location'],
+                         train_datasets=['mesa'], val_datasets=['mesa'], test_datasets=['mesa'], test=True,
+                         batch_size=4, val_batch_size=8, test_batch_size=8, num_workers=1,
+                         max_length_hours=TRAIN_HOURS)
+    trainer = Trainer(model=build_model(cfg['model'], generator=torch.Generator().manual_seed(0)), datamodule=dm,
+                      ema_decay=0.999, precision='bfloat16', log_dir=os.path.join(work, 'drive_check'),
+                      progress_bar=False)
+    trainer.restore(os.path.join(run_dir, 'checkpoints', 'best'))
+    test = trainer.evaluate('test')
+    final = summary['final_metrics']
+    d_test = max(abs(test[k] - final[k]) / abs(final[k]) for k in test)
+    (_, loader), = dm.test_loaders()
+    got = trainer.predict(loader)
+    exported = api.W2SModel.load(os.path.join(run_dir, 'model'))
+    margins = []
+    for x, _ in dm.test_loaders()[0][1]:
+        top2 = np.sort(exported.logits(x), axis=-1)[..., -2:]
+        margins.append(top2[..., 1] - top2[..., 0])
+    margin = np.concatenate(margins)
+    test_fps = sorted(f for f in os.listdir(os.path.join(root, 'data', 'mesa', 'test')) if f.endswith('.parquet'))
+    csv = []
+    for f in test_fps:
+        with open(os.path.join(root, 'storage', 'drive_preds', f.replace('.parquet', '.preds.csv'))) as fh:
+            header, *lines = fh.read().splitlines()
+        pred_col = header.split(',').index('Pred')
+        csv.append([int(row.split(',')[pred_col]) for row in lines])
+    csv = np.array(csv)[:, :got['preds'].shape[1]]  # the night's epochs
+    clear = margin > DRIVE_MARGIN
+    same = got['preds'].shape == csv.shape == margin.shape and bool((got['preds'][clear] == csv[clear]).all())
+    if not same:
+        log(f'drive: trainer predictions {got["preds"].shape} {got["preds"].ravel()[:12]}, CSVs {csv.shape} '
+            f'{csv.ravel()[:12]}, margins {margin.shape}')
+    log(f'drive: {len(epochs)} epochs in {drive_s:.1f} s (cap {DRIVE_EPOCHS}, early stopped {ev["early_stopped"]}, '
+        f'plateau LR cut {ev["plateau_lr_reduced"]} at {ev["lr_reduction_epochs"]}, best epoch {ev["best_epoch"]}, best '
+        f'is last {ev["best_is_last"]}); val_loss {[round(r["val_loss"], 4) for r in val_rows]}; q16 shadow agrees '
+        f'{ev["eval_transport_ab"]["selection_agrees"]} (max |d| {ev["eval_transport_ab"]["max_abs_val_loss_delta"]}); '
+        f'K1 {launches} launches over {micro_steps} micro-steps and the eval passes; test pass from best here vs the '
+        f'CLI\'s: max relative |d| {d_test:.2e} (bound {DRIVE_TEST_TOL:g}); trainer predictions vs the export\'s '
+        f'predict_on_folder CSVs on {int(clear.sum())} of {clear.size} epochs off near-ties: equal {same}; '
+        f'exported model on the test nights: accuracy {summary["exported_checkpoint_test"]["accuracy"]}, kappa '
+        f'{summary["exported_checkpoint_test"]["kappa"]}')
+    if not d_test <= DRIVE_TEST_TOL:
+        raise AssertionError(f'drive: the test pass from checkpoints/best differs from the CLI\'s: {test} vs {final}')
+    if not same:
+        raise AssertionError('drive: the trainer\'s test predictions differ from the export\'s predict_on_folder')
+    del trainer, exported
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    q8_rows = q8_quality.main(['--train-nights', '4', '--eval-nights', '4', '--hours', '2', '--train-steps', '10'])
+    q8_s = time.time() - t0
+    if len(q8_rows) != 5 or not all(np.isfinite(v) for r in q8_rows for k, v in r.items()
+                                    if isinstance(v, float) and k != 'kappa_vs_f32'):
+        raise AssertionError(f'drive: q8_quality rows {q8_rows}')
+    t0 = time.time()
+    emb = eval_matrix_bench.main(['--data', os.path.join(root, 'data'), '--reps', '1',
+                                  '--log-dir', os.path.join(work, 'eval_matrix_bench')])
+    emb_s = time.time() - t0
+    t0 = time.time()
+    psb = pipeline_scale_bench.main(['--root', root, '--epochs', '2', '--out', os.path.join(work, 'pipeline_scale.json')])
+    psb_s = time.time() - t0
+    if len(psb['epochs']) != 2 or not np.isfinite(psb['sustained_ms_per_step']):
+        raise AssertionError(f'drive: pipeline_scale_bench {psb}')
+    line = dict(card=card, cuts=DRIVE_CUTS, prepare_s=prepare_s, drive_s=drive_s, epochs_run=len(epochs),
+                selection=ev, val_loss=[r['val_loss'] for r in val_rows],
+                val_loss_q16=[r['val_loss_q16'] for r in val_rows], lr=[r['lr'] for r in train_rows],
+                steps_per_s=[r['train_steps_per_sec'] for r in train_rows],
+                host_loader_frac=[r['host_loader_frac'] for r in train_rows], k1_launches=launches,
+                micro_steps=micro_steps, test_rel_diff=d_test, final_metrics=final,
+                exported_checkpoint_test=summary['exported_checkpoint_test'], q8_quality=q8_rows, q8_quality_s=q8_s,
+                eval_matrix_bench=emb, eval_matrix_bench_s=emb_s, pipeline_scale_bench=psb,
+                pipeline_scale_bench_s=psb_s, phase_s=time.time() - t_phase)
+    log(f'drive: phase 18 in {line["phase_s"]:.1f} s (prepare {prepare_s:.1f}, drive {drive_s:.1f}, q8_quality '
+        f'{q8_s:.1f}, eval_matrix_bench {emb_s:.1f}, pipeline_scale_bench {psb_s:.1f})')
+    shutil.rmtree(root)
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -2494,6 +2933,11 @@ def main() -> int:
         ingest_line, k1_ingest = phase_ingest(torch, k1, k3, card, work)
         torch.cuda.empty_cache()
         parallel_line = phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps)
+        torch.cuda.empty_cache()
+        eog_line, k1_eog, _ = phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, card, work,
+                                        tf32_defaults)
+        torch.cuda.empty_cache()
+        drive_line, k1_drive = phase_drive(torch, k1, card, work)
 
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
@@ -2502,11 +2946,14 @@ def main() -> int:
         # training step of phase 11 (a) (forward and recompute);
         # trainer_launches: per training micro-step of phase 13's main();
         # api_launches: phase 14's f32 predict_on_folder run;
-        # ingest_launches: per training micro-step of phase 15's main().
+        # ingest_launches: per training micro-step of phase 15's main();
+        # eog_launches: per bf16 wav2sleep-eog forward of phase 17 (a);
+        # drive_launches: phase 18's reduced drive, its fit, eval and test.
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
              train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api,
-             ingest_launches=k1_ingest, max_abs_err=k1_err, **k1_line),
+             ingest_launches=k1_ingest, eog_launches=k1_eog, drive_launches=k1_drive, max_abs_err=k1_err,
+             **k1_line),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the same path in the kernel-statistics configuration;
         # train_launches: per training step of phase 11 (c).
@@ -2531,6 +2978,8 @@ def main() -> int:
     print(json.dumps({'api': api_line}))
     print(json.dumps({'ingest': ingest_line}))
     print(json.dumps({'parallel': parallel_line}))
+    print(json.dumps({'eog': eog_line}))
+    print(json.dumps({'drive': drive_line}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

@@ -1123,3 +1123,115 @@ def test_two_replica_q16_pipeline_on_the_card_is_one_replica(card, tmp_path):
     assert list(two) == list(one) == fps
     for fp in fps:
         np.testing.assert_array_equal(two[fp], one[fp])
+
+
+# ---------------------------------------------------------------- wav2sleep-eog
+
+# The EOG encoders' first two blocks at ten hours: C=16 over 4,915,200 and
+# 2,457,600 samples. f32 at the config's batch of 16 holds 1.26e9 elements
+# (5.0 GB) a tensor; bf16 at the serving batch of 8.
+EOG_T0 = 4096 * 1200
+EOG_CASES = [(B, T, stride, dtype) for dtype, B in ((torch.float32, 16), (torch.bfloat16, 8))
+             for T in (EOG_T0, EOG_T0 // 2) for stride in (1, 2)]
+
+
+def _within(got, want, dtype) -> bool:
+    """K1's bound against its plain version, computed in place to keep
+    the card's memory to a few copies of a 5 GB tensor."""
+    if dtype == torch.float32:
+        d = (got - want).abs_()
+        return bool((d <= want.abs().mul_(1e-4).add_(1e-4)).all())
+    ref = want.float()
+    rms = float(ref.square().mean().sqrt())
+    d = (got.float() - ref).abs_()
+    return bool((d <= ref.abs_().add_(rms).mul_(2**-6)).all())
+
+
+@pytest.mark.parametrize('B,T,stride,dtype', EOG_CASES)
+def test_k1_and_k2_match_plain_at_eog_block_shapes(card, B, T, stride, dtype):
+    """K1 against plain with phi the identity and instance norm + gelu, and
+    K2's y as K1's with its statistics those of block_stats over that y, at
+    the 16 -> 16 convs of EOG blocks 0 and 1."""
+    g = torch.Generator(device=card).manual_seed(T + stride)
+    x32 = torch.randn((B, T, 16), device=card, generator=g).mul_(1.5).add_(0.3)
+    mu, inv = bd.block_stats(x32, 1e-2)
+    x = x32.to(dtype)
+    del x32
+    w = (torch.randn((3, 16, 16), device=card, generator=g) / np.sqrt(48)).to(dtype)
+    b = (torch.randn((16,), device=card, generator=g) * 0.1).to(dtype)
+    for args in ((b, None, None, stride, None), (b, mu, inv, stride, 'gelu')):
+        before = k1.LAUNCHES, k1.STATS_LAUNCHES
+        got = k1.conv_k3(x, w, *args)
+        want = k1.conv_k3_reference(x, w, *args)
+        assert got.shape == want.shape == (B, k1.output_length(T, stride), 16) and got.dtype == dtype
+        assert _within(got, want, dtype)
+        del want
+        y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, 1e-2)
+        assert (k1.LAUNCHES, k1.STATS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(y, got)
+        del got
+        mu_r, inv_r = bd.block_stats(y, 1e-2)
+        torch.testing.assert_close(mu_k, mu_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv_k, inv_r, rtol=1e-5, atol=1e-5)
+        del y
+    torch.cuda.empty_cache()
+
+
+def _eog_model(device, remat=False):
+    from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
+
+    cfg = flagship_config(variant='eog')
+    cfg['encoders']['remat'] = remat
+    cfg['epoch_mixer']['dropout'] = cfg['sequence_mixer']['dropout'] = 0.0
+    return build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def test_eog_forward_on_k1_matches_the_plain_path(card, monkeypatch):
+    """The full-width wav2sleep-eog in f32 on two one-hour nights (one
+    without EOG-R): K1 at each of its 58 kernel-eligible convs, the logits
+    within 1e-3 of the same model with its convs plain."""
+    model = _eog_model(card).eval()
+    n_k1 = sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D))
+    assert n_k1 == 58  # 2 encoders x 10 blocks x 3 k3 convs, less the two C_in=1 entry convs
+    g = torch.Generator(device=card).manual_seed(3)
+    x = {c: torch.randn((2, 4096 * 120), device=card, generator=g) for c in ('EOG-L', 'EOG-R')}
+    x['EOG-R'][1] = -torch.inf
+    with torch.inference_mode():
+        before = k1.LAUNCHES
+        got = model(x)
+        assert k1.LAUNCHES - before == n_k1
+        monkeypatch.setattr(layers, 'conv_k3', k1.conv_k3_reference)
+        want = model(x)
+    assert got.shape == (2, 120, 5) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_eog_train_step_on_k1_matches_the_plain_path(card, monkeypatch):
+    """One f32 EOG step (remat, masker and flip on, 5 classes): K1 at the
+    forward and the recompute, and the loss, gradient norm and every
+    gradient (Adam's first moment) within 5e-4 of the plain path's."""
+    from wav2sleep_tpu_torch import train_bench
+    from wav2sleep_tpu_torch.train import step as tstep
+    from wav2sleep_tpu_torch.train.masker import SignalMasker
+
+    x, y = train_bench.example_batch(2, 8, seed=5, signals='eog')
+    batch = {k: torch.from_numpy(v).to(card) for k, v in x.items()}, torch.from_numpy(y).to(card)
+    out = {}
+    for path in ('kernel', 'plain'):
+        with monkeypatch.context() as m:
+            if path == 'plain':
+                m.setattr(layers, 'conv_k3', k1.conv_k3_reference)
+            model = _eog_model(card, remat=True)
+            opt = tstep.make_optimizer(TRAIN_LR)
+            state = tstep.init_train_state(model, opt)
+            step = tstep.make_train_step(model, opt, 5, masker=SignalMasker(*train_bench.MASKERS['eog']))
+            before = k1.LAUNCHES
+            _, metrics = step(state, batch, 7)
+            torch.cuda.synchronize()
+            out[path] = (k1.LAUNCHES - before, float(metrics['loss']), float(metrics['grad_norm']),
+                         [mu.clone() for mu in state.opt_state.mu])
+    (n_k, l_k, g_k, m_k), (n_p, l_p, g_p, m_p) = out['kernel'], out['plain']
+    assert (n_k, n_p) == (116, 0)
+    assert abs(l_k - l_p) <= 5e-4 * abs(l_p) and abs(g_k - g_p) <= 5e-4 * abs(g_p)
+    for a, b in zip(m_k, m_p):
+        assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max().clamp_min(1e-30))

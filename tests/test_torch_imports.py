@@ -126,7 +126,7 @@ def test_port_imports_without_jax_pandas_yaml():
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
     n = int(proc.stdout.split('IMPORTED')[1].split()[0])
-    assert n >= 71, proc.stdout  # every module of the package was reached
+    assert n >= 75, proc.stdout  # every module of the package was reached
 
 
 _FIT_PROBE = _BLOCKER % (tuple(b for b in BLOCKED if b != 'pyarrow'),) + '''

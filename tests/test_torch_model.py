@@ -18,7 +18,7 @@ from wav2sleep_tpu.instantiate import instantiate
 from wav2sleep_tpu.settings import COLS_TO_SAMPLES_PER_EPOCH
 from wav2sleep_tpu_torch.convert import from_jax_variables
 from wav2sleep_tpu_torch.models import layers
-from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_model
+from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config, flagship_model
 
 from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
@@ -171,3 +171,70 @@ def test_from_jax_variables_is_the_checkpoint_mapping(narrow_flagship):
     for k, v in want.items():
         assert got[k].dtype == torch.float32 and got[k].shape == v.shape
         assert np.array_equal(got[k].numpy(), v), k
+
+
+@pytest.mark.parametrize('variant', ['cardio', 'eog'])
+def test_seeded_init_draws_from_the_jax_packages_distributions(variant):
+    """Every parameter of the port's seeded init comes from the distribution
+    that the JAX package's ``init`` draws it from (other draws): the same
+    standard deviation within 10% and the same largest magnitude within 15%
+    where a tensor has the elements to show it, and the same constants (zero
+    biases, unit scales). The transformer's kernels are flax's truncated
+    normal, whose spread is sqrt(3) times the uniform's of the other kernels;
+    the port once drew them uniform."""
+    _, cfg = _flagship_model(feature_dim=128, variant=variant)
+    cfg['signal_encoders']['max_channels'] = 16
+    cfg['signal_encoders']['embed_signals'] = True
+    signals = list(cfg['signal_encoders']['signal_map'])
+    x0 = {k: np.zeros((1, 2 * COLS_TO_SAMPLES_PER_EPOCH[k]), np.float32) for k in signals}
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, instantiate(cfg).init(jax.random.PRNGKey(0), x0)))
+    tcfg = flagship_config(128, 16, variant)
+    tcfg['encoders']['embed_signals'] = True
+    got = build_wav2sleep(**tcfg, generator=torch.Generator().manual_seed(1)).state_dict()
+    assert set(got) == set(want)
+    n_spread = 0
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        if float(w.std()) == 0.0:
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=k)
+        elif w.numel() >= 1024:  # the smaller tensors have too few draws to hold to 10%
+            assert abs(float(g.std() / w.std()) - 1) < 0.10, (k, float(g.std()), float(w.std()))
+            if w.numel() >= 4096:
+                assert abs(float(g.abs().max() / w.abs().max()) - 1) < 0.15, k
+            n_spread += 1
+    assert n_spread >= 20
+
+
+@torch.no_grad()
+def uniform_kernel_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """``model`` with its parameters redrawn from a seed-``seed`` generator in
+    the port's init order, but with every dense kernel (the transformer's
+    too) uniform +-1/sqrt(fan_in) like the conv kernels: the weights that
+    tests whose gates were set on one seeded draw keep, whatever the init's
+    scheme for the transformer becomes."""
+    from wav2sleep_tpu_torch.models.norms import ConvLayerNorm
+    from wav2sleep_tpu_torch.models.transformer import MultiHeadSelfAttention
+    from wav2sleep_tpu_torch.models.wav2sleep import MultiModalAttentionEmbedder
+
+    generator = torch.Generator().manual_seed(seed)
+
+    def uniform(w):
+        bound = 1.0 / np.sqrt(w[0].numel())
+        w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound) - bound)
+
+    for m in model.modules():
+        if isinstance(m, layers.Conv1D) and hasattr(m, 'weight_v'):
+            uniform(m.weight_v)
+            m.weight_g.fill_(1.0)
+        elif isinstance(m, (layers.Conv1D, torch.nn.Linear)):
+            uniform(m.weight)
+        elif isinstance(m, MultiHeadSelfAttention):
+            uniform(m.in_proj_weight)
+        elif isinstance(m, (torch.nn.LayerNorm, ConvLayerNorm)):
+            m.weight.fill_(1.0)
+        elif isinstance(m, torch.nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+        elif isinstance(m, MultiModalAttentionEmbedder):
+            m.register_tokens.copy_(torch.randn(m.register_tokens.shape, generator=generator))
+    return model

@@ -36,6 +36,7 @@ from wav2sleep_tpu_torch.train import scheduler
 from wav2sleep_tpu_torch.train import step as tstep
 
 from . import torch_parallel_workers as workers
+from .test_torch_model import uniform_kernel_weights
 from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 from .test_torch_train import (
     ADAM_RATIO,
@@ -86,7 +87,10 @@ def cases():
     flagship = {'cfg': instantiate.target_config(**{**_flagship_cfg()}),
                 'weights': {k: v.numpy() for k, v in tmodel.state_dict().items()}}
     x, y = _batch(B=4, S=2, seed=1)
-    small = {'cfg': MODEL_CFG, 'weights': None}
+    # The smoke model on the seed-0 weights with uniform dense kernels on
+    # which the unequal case's spread was set (ROADMAP §C.22).
+    small = {'cfg': MODEL_CFG, 'weights': {k: v.numpy() for k, v in
+                                           uniform_kernel_weights(instantiate.build_model(MODEL_CFG)).state_dict().items()}}
     unequal = np.full((4, 6), -1.0, np.float32)
     unequal[0, 0] = 2.0  # rank 0: 1 scored epoch; rank 1: all 12
     unequal[2:] = np.random.default_rng(5).integers(0, 4, size=(2, 6))

@@ -31,6 +31,7 @@ from .test_torch_families import (PPG_LEN, TOL, check_stats, model_pair, ppgnet_
                                   wav2sleep_inputs)
 from .test_torch_train import (ADAM_RATIO, NOISY_MOMENT, NOISY_SHARE, PARAM_ATOL, SCHEDULE, STEP_OPT, STEP_TOL,
                                _adam_mu, _Capture)
+from .test_torch_model import uniform_kernel_weights
 from .test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # name: (config, steps, each step from the port's state, gradient norm bound,
@@ -279,9 +280,10 @@ def test_bf16_batch_norm_over_few_values_is_finite_as_in_jaxs_jit():
     runs, keeps the fused statistics in f32 and is finite; the port
     normalizes a bf16 input in f32. The port's bf16 train-mode logits are
     within twice JAX's own bf16-vs-f32 error of the f32 logits (the method
-    of ROADMAP §C.2), on the port's seed-0 weights."""
+    of ROADMAP §C.2), on the seed-0 weights with uniform dense kernels that
+    the gate was set on (``uniform_kernel_weights``; ROADMAP §C.22)."""
     cfg = KINDS['batch_norm_wav2sleep'][0]
-    model = tinstantiate.build_model(cfg)
+    model = uniform_kernel_weights(tinstantiate.build_model(cfg))
     jmodel = instantiate(cfg)
     variables = convert_state_dict({k: v.clone() for k, v in model.state_dict().items()})
     x, _ = _batch('wav2sleep', seed=2)

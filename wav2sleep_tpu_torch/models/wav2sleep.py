@@ -30,7 +30,7 @@ from ..utils import resolve_device
 from .activations import get_activation
 from .layers import Conv1D, ConvBlock1D, DilatedConvBlock, rematerialised
 from .norms import ConvLayerNorm
-from .transformer import MultiHeadSelfAttention, TransformerEncoder
+from .transformer import MultiHeadSelfAttention, TransformerEncoder, TransformerEncoderLayer
 
 
 class SignalEncoder(nn.Module):
@@ -275,15 +275,28 @@ class Wav2Sleep(nn.Module):
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init of every parameter (the JAX package's scheme:
-    uniform +-1/sqrt(fan_in) conv and dense kernels and weight-norm
-    directions, zero biases, unit norm scales and weight-norm magnitudes,
-    N(0, 1) register tokens and signal embeddings). The norms' own
-    constructors give the other kinds' unit scales and zero biases."""
+    uniform +-1/sqrt(fan_in) conv kernels, weight-norm directions and the
+    encoders' and classifier's dense kernels; LeCun normal, N(0, 1/fan_in)
+    truncated at two of its underlying standard deviations (the JAX
+    package's default for dense layers), for the transformer's attention
+    and feed-forward kernels; zero biases, unit norm scales and weight-norm
+    magnitudes; N(0, 1) register tokens and N(0, 1/feature_dim) signal
+    embeddings). The norms' own constructors give the other kinds' unit
+    scales and zero biases."""
 
     def uniform_fan_in(w):
         bound = 1.0 / math.sqrt(w[0].numel())
         w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound) - bound)
 
+    def lecun_normal(w):
+        # Inverse-CDF draw within +-2 of N(0, 1), rescaled so that the
+        # truncated draw's standard deviation is 1/sqrt(fan_in).
+        lo = 0.5 * (1.0 + math.erf(-math.sqrt(2.0)))
+        u = lo + torch.rand(w.shape, generator=generator, dtype=torch.float64) * (1.0 - 2.0 * lo)
+        w.copy_(torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) / 0.87962566103423978 / math.sqrt(w[0].numel())))
+
+    transformer = {id(lin) for m in model.modules() if isinstance(m, TransformerEncoderLayer)
+                   for lin in (m.self_attn.out_proj, m.linear1, m.linear2)}
     for m in model.modules():
         if isinstance(m, Conv1D) and hasattr(m, 'weight_v'):
             uniform_fan_in(m.weight_v)
@@ -291,17 +304,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (Conv1D, nn.Linear)):
-            uniform_fan_in(m.weight)
+            (lecun_normal if id(m) in transformer else uniform_fan_in)(m.weight)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, MultiHeadSelfAttention):
-            uniform_fan_in(m.in_proj_weight)
+            lecun_normal(m.in_proj_weight)
             m.in_proj_bias.zero_()
         elif isinstance(m, (nn.LayerNorm, ConvLayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(m.weight.shape[1]))
         elif isinstance(m, MultiModalAttentionEmbedder):
             m.register_tokens.copy_(torch.randn(m.register_tokens.shape, generator=generator))
     return model
@@ -326,12 +339,25 @@ def build_wav2sleep(
     return init_parameters(model, generator if generator is not None else torch.Generator().manual_seed(0))
 
 
-def flagship_config(feature_dim: int = 128, max_channels: int = 128) -> dict:
-    """The flagship cardio architecture of ``__graft_entry__._flagship_model``:
-    ECG+PPG+ABD+THX, 4 classes (``max_channels`` narrows it for tests)."""
+# The released variants' classes and signals (``hub.MODEL_VARIANTS``):
+# wav2sleep (cardio) and wav2sleep-eog, whose 4,096-sample epochs give the
+# deepest encoders (10 blocks).
+VARIANTS = {
+    'cardio': (4, ('ABD', 'THX', 'ECG', 'PPG')),
+    'eog': (5, ('EOG-L', 'EOG-R')),
+}
+
+
+def flagship_config(feature_dim: int = 128, max_channels: int = 128, variant: str = 'cardio') -> dict:
+    """The architecture of ``__graft_entry__._flagship_model(variant=)``:
+    'cardio' is ECG+PPG+ABD+THX with 4 classes, 'eog' EOG-L/EOG-R with 5;
+    the rest is shared (``max_channels`` narrows it for tests)."""
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown variant {variant!r} (one of {sorted(VARIANTS)})')
+    num_classes, signals = VARIANTS[variant]
     return {
-        'num_classes': 4,
-        'signal_map': {'ABD': 'ABD', 'THX': 'THX', 'ECG': 'ECG', 'PPG': 'PPG'},
+        'num_classes': num_classes,
+        'signal_map': {k: k for k in signals},
         'encoders': {
             'feature_dim': feature_dim, 'activation': 'gelu', 'norm': 'instance', 'causal': False,
             'chunk_causal': False, 'initial_channels': 16, 'max_channels': max_channels,
@@ -352,13 +378,15 @@ def flagship_model(
     feature_dim: int = 128,
     *,
     max_channels: int = 128,
+    variant: str = 'cardio',
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
     generator: torch.Generator | None = None,
 ) -> Wav2Sleep:
-    """The flagship model with a seeded random init, in eval mode, on
-    ``device`` (the card when None; raises without one) in ``dtype``."""
+    """The flagship model of ``variant`` with a seeded random init, in eval
+    mode, on ``device`` (the card when None; raises without one) in
+    ``dtype``."""
     device = resolve_device(device)
-    cfg = flagship_config(feature_dim, max_channels)
+    cfg = flagship_config(feature_dim, max_channels, variant)
     model = build_wav2sleep(**cfg, generator=generator)
     return model.to(device=device, dtype=dtype).eval()

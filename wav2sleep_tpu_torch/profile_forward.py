@@ -1,9 +1,10 @@
 """Where a flagship serving forward spends its device time, on one NVIDIA card.
 
-    python -m wav2sleep_tpu_torch.profile_forward [--table FILE]
+    python -m wav2sleep_tpu_torch.profile_forward [--signals cardio|eog] [--table FILE]
 
-Runs ``make_streaming_forward_q8`` (bf16, the flagship model with seeded
-random weights) on seeded int8 codes for a batch of 8 ten-hour nights,
+Runs ``make_streaming_forward_q8`` (bf16, the flagship model of the
+``--signals`` variant with seeded random weights: cardio, the default, or
+wav2sleep-eog) on seeded int8 codes for a batch of 8 ten-hour nights,
 already on the card, and prints, per forward:
 
 - the wall time (CUDA events, median of 5), and the device time that
@@ -23,10 +24,10 @@ import statistics
 import torch
 from torch.autograd import DeviceType
 
-from .models.wav2sleep import flagship_model
+from .models.wav2sleep import VARIANTS, flagship_model
+from .ops import conv_k3
 from .pipeline import Q8_META_DTYPE, grid_length, make_streaming_forward_q8
 
-SIGNALS = ('ECG', 'PPG', 'ABD', 'THX')
 BATCH, HOURS, FORWARDS, ROWS = 8, 10.0, 3, 15
 
 
@@ -49,16 +50,18 @@ def _self_device_us(avg) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--signals', default='cardio', choices=sorted(VARIANTS), help='the released variant')
     ap.add_argument('--table', default=None, help="file for the profiler's full table")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward needs an NVIDIA card')
 
-    model = flagship_model(device='cuda', generator=torch.Generator().manual_seed(0))
+    signals = VARIANTS[args.signals][1]
+    model = flagship_model(variant=args.signals, device='cuda', generator=torch.Generator().manual_seed(0))
     forward = make_streaming_forward_q8(model, 'bfloat16', output='logits')
     gen = torch.Generator(device='cuda').manual_seed(0)
     B, q, fields = BATCH, {}, {name: {} for name in Q8_META_DTYPE.names}
-    for c in SIGNALS:
+    for c in signals:
         n = grid_length(c, HOURS)
         q[c] = torch.randint(-127, 128, (B, n), generator=gen, device='cuda', dtype=torch.int8)
         for name, value in (('a', 1.0), ('b', 0.0), ('vmax', 1000.0)):
@@ -71,6 +74,10 @@ def main(argv=None) -> None:
         return forward(q, *fields.values())
 
     wall = _cuda_ms(run)
+    conv_k3.LAUNCHES = 0
+    run()
+    torch.cuda.synchronize()
+    k1_launches = conv_k3.LAUNCHES
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(FORWARDS):
@@ -83,7 +90,8 @@ def main(argv=None) -> None:
     on_device = [a for a in avgs if a.device_type != DeviceType.CPU and _self_device_us(a) > 0]
     on_host = [a for a in avgs if a.device_type == DeviceType.CPU and _self_device_us(a) > 0]
     device_ms = sum(_self_device_us(a) for a in on_device) / 1e3 / n
-    print(f'{torch.cuda.get_device_name(0)}; flagship q8 forward, bf16, B={B} x {HOURS:g} h')
+    print(f'{torch.cuda.get_device_name(0)}; {args.signals} flagship q8 forward, bf16, B={B} x {HOURS:g} h; '
+          f'{k1_launches} K1 launches a forward')
     print(f'wall per forward (CUDA events, median of 5): {wall:.3f} ms')
     print(f'device time per forward (profiler, {n} forwards): {device_ms:.3f} ms '
           f'({100 * device_ms / wall:.1f}% of the wall)')
@@ -97,7 +105,7 @@ def main(argv=None) -> None:
             f.write(avgs.table(sort_by='self_device_time_total', row_limit=200, max_name_column_width=100))
 
     with torch.inference_mode():
-        for c in SIGNALS:
+        for c in signals:
             x = torch.randn(q[c].shape, generator=gen, device='cuda').to(torch.bfloat16)
             enc = model.signal_encoders.encoders[c]
             print(f'encoder {c}: {_cuda_ms(lambda: enc(x)):.3f} ms')

@@ -2,15 +2,18 @@
 
     python -m wav2sleep_tpu_torch.train_bench [--batch 4] [--epochs-per-night 1200]
         [--feature-dim 128] [--precision bfloat16|float32] [--transport lossless|q8]
-        [--k 5] [--reps 3] [--remat on|off] [--device cuda|cpu]
+        [--signals cardio|eog] [--k 5] [--reps 3] [--remat on|off] [--device cuda|cpu]
 
 The port's sibling of ``scripts/train_bench.py``: the whole training step
 (polarity flip, modality dropout, forward, backward, global-norm clip, AdamW,
-weight EMA, confusion matrix) on full nights of the flagship cardio model
-(ECG+PPG+ABD+THX, feature_dim 128, seeded random weights) with the cardio
-masker, AdamW 1e-3 on the expdecay schedule (2000, 10000), weight decay
-1e-4, clip 1.0 and EMA 0.9999 from step 2000; the encoders rematerialise
-each block (``--remat on``, the training config's setting). Two numbers:
+weight EMA, confusion matrix) on full nights of the flagship model
+(feature_dim 128, seeded random weights): ``--signals cardio`` (the default)
+is ECG+PPG+ABD+THX, 4 classes, with the cardio masker; ``--signals eog`` is
+wav2sleep-eog, EOG-L/EOG-R at 4,096 samples an epoch (10-block encoders), 5
+classes, with the EOG masker of ``scripts/train_bench.py``. AdamW 1e-3 on
+the expdecay schedule (2000, 10000), weight decay 1e-4, clip 1.0 and EMA
+0.9999 from step 2000; the encoders rematerialise each block (``--remat
+on``, the training config's setting). Two numbers:
 
 - compute: the marginal time of a step on operands resident on the device,
   between 1 and ``k`` chained steps, timed with CUDA events (median of
@@ -38,7 +41,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .models.wav2sleep import build_wav2sleep, flagship_config
+from .models.wav2sleep import VARIANTS, build_wav2sleep, flagship_config
 from .ops import conv_k3
 from .ops.q8_transport import encode_batch
 from .settings import COLS_TO_SAMPLES_PER_EPOCH
@@ -47,21 +50,23 @@ from .train.scheduler import exp_warmup_schedule
 from .train.step import TrainState, init_train_state, make_optimizer, make_train_step
 from .utils import card_line, resolve_device
 
-SIGNALS = ('ABD', 'THX', 'ECG', 'PPG')
-NUM_CLASSES = 4
 # scripts/config/inputs/cardiorespiratory/all.yaml
 DROPOUTS = {'ABD': 0.7, 'THX': 0.7, 'ECG': 0.5, 'PPG': 0.1}
 BACKUPS = ['ECG', 'PPG']
+# Each variant's masker (dropouts, backups); EOG's as scripts/train_bench.py's.
+MASKERS = {'cardio': (DROPOUTS, BACKUPS), 'eog': ({'EOG-L': 0.3, 'EOG-R': 0.3}, ['EOG-L'])}
 RING = 4
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
-def example_batch(B: int, S: int, seed: int = 0) -> tuple[dict[str, np.ndarray], np.ndarray]:
-    """A seeded host batch: N(0, 1) f32 signals of S epochs and labels in
-    -1..3 (-1 ignored), as ``__graft_entry__._example_batch``."""
+def example_batch(B: int, S: int, seed: int = 0, signals: str = 'cardio') -> tuple[dict[str, np.ndarray], np.ndarray]:
+    """A seeded host batch of the ``signals`` variant: N(0, 1) f32 signals
+    of S epochs and labels in -1..C-1 (-1 ignored), as
+    ``__graft_entry__._example_batch``."""
+    n_classes, names = VARIANTS[signals]
     rng = np.random.default_rng(seed)
-    x = {sig: rng.normal(size=(B, COLS_TO_SAMPLES_PER_EPOCH[sig] * S)).astype(np.float32) for sig in SIGNALS}
-    y = rng.integers(-1, NUM_CLASSES, size=(B, S)).astype(np.float32)
+    x = {sig: rng.normal(size=(B, COLS_TO_SAMPLES_PER_EPOCH[sig] * S)).astype(np.float32) for sig in names}
+    y = rng.integers(-1, n_classes, size=(B, S)).astype(np.float32)
     return x, y
 
 
@@ -74,18 +79,19 @@ class Setup:
 
 
 def build(precision: str = 'bfloat16', feature_dim: int = 128, device=None, remat: bool = True,
-          ema: bool = True) -> Setup:
-    """The flagship (weights from seed 0), its train state and its step
-    with the bench's options, on ``device`` (the card when None)."""
+          ema: bool = True, signals: str = 'cardio') -> Setup:
+    """The flagship of the ``signals`` variant (weights from seed 0), its
+    train state and its step with the bench's options, on ``device`` (the
+    card when None)."""
     device = resolve_device(device)
-    cfg = flagship_config(feature_dim)
+    cfg = flagship_config(feature_dim, variant=signals)
     cfg['encoders']['remat'] = remat
     model = build_wav2sleep(**cfg, generator=torch.Generator().manual_seed(0)).to(device)
     opt = make_optimizer(exp_warmup_schedule(1e-3, 2000, 10000), weight_decay=1e-4, grad_clip=1.0)
     state = init_train_state(model, opt, ema=ema)
     dtype = DTYPES[precision]
     step = make_train_step(
-        model, opt, NUM_CLASSES, masker=SignalMasker(DROPOUTS, BACKUPS), flip_polarity=True,
+        model, opt, cfg['num_classes'], masker=SignalMasker(*MASKERS[signals]), flip_polarity=True,
         ema_decay=0.9999 if ema else None, ema_start_step=2000,
         compute_dtype=dtype if dtype != torch.float32 else None,
     )
@@ -200,13 +206,13 @@ def launches_per_step(s: Setup, batch) -> dict[str, int]:
 
 def run(batch: int = 4, epochs_per_night: int = 1200, feature_dim: int = 128, precision: str = 'bfloat16',
         transport: str = 'lossless', k: int = 5, reps: int = 3, device=None, remat: bool = True,
-        e2e: bool = True) -> dict:
+        e2e: bool = True, signals: str = 'cardio') -> dict:
     """The bench's measurements as a dict (its JSON line). ``e2e=False``
     skips the staged run."""
     if k < 2:
         raise ValueError('k must be >= 2 (the marginal timing divides by k - 1)')
-    s = build(precision, feature_dim, device, remat)
-    x, y = example_batch(batch, epochs_per_night)
+    s = build(precision, feature_dim, device, remat, signals=signals)
+    x, y = example_batch(batch, epochs_per_night, signals=signals)
     cuda = s.device.type == 'cuda'
     if cuda:
         torch.cuda.reset_peak_memory_stats(s.device)
@@ -217,7 +223,7 @@ def run(batch: int = 4, epochs_per_night: int = 1200, feature_dim: int = 128, pr
     del resident
     e2e_per_step = e2e_ms(s, x, y, transport, k, reps) if e2e else None
     return {
-        'metric': (f'train step (B={batch}, S={epochs_per_night}, cardio signals, fd={feature_dim}, {precision}, '
+        'metric': (f'train step (B={batch}, S={epochs_per_night}, {signals} signals, fd={feature_dim}, {precision}, '
                    f'transport={transport}, remat={"on" if remat else "off"})'),
         'device': torch.cuda.get_device_name(s.device) if cuda else 'cpu',
         'card': card_line() if cuda else None,
@@ -241,6 +247,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument('--transport', default='lossless', choices=['lossless', 'q8'],
                         help='lossless ships signals at compute precision; q8 ships mu-law int8 codes '
                              'decoded on the device')
+    parser.add_argument('--signals', default='cardio', choices=sorted(VARIANTS),
+                        help='released-variant signal set (eog = wav2sleep-eog: EOG-L/R, 5 classes, 4,096 '
+                             'samples an epoch, the deepest 10-block encoders)')
     parser.add_argument('--k', type=int, default=5, help='chained steps for the marginal timing (>= 2)')
     parser.add_argument('--reps', type=int, default=3, help='timing repetitions; the median is reported')
     parser.add_argument('--remat', default='on', choices=['on', 'off'],
@@ -250,7 +259,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.k < 2:
         parser.error('--k must be >= 2 (marginal timing divides by k - 1)')
     print(json.dumps(run(args.batch, args.epochs_per_night, args.feature_dim, args.precision, args.transport,
-                         args.k, args.reps, args.device, args.remat == 'on')), flush=True)
+                         args.k, args.reps, args.device, args.remat == 'on', signals=args.signals)), flush=True)
 
 
 if __name__ == '__main__':
