@@ -11,7 +11,10 @@ Phases (any failure raises, so the script exits non-zero):
 2. Build: compiles ``csrc/conv_k3.cu`` (K1, K2), ``csrc/ema_norm.cu``
    (K3) and ``csrc/conv_variants.cu`` (the five profiling variants) with
    nvcc and the native host library (``native/src``, EDF decode and the f64
-   EMA) with g++, all four at once; prints each build time.
+   EMA) with g++, all four at once; prints each build time. Then the proof
+   of K1's and K2's route in the SASS of their library (``cuobjdump
+   -sass``): every bf16 instantiation on wgmma and TMA (HGMMA, UTMALDG,
+   UTMASTG), none spilling (ptxas), and no mma.sync or ldmatrix left.
 3. K1 against its plain PyTorch version (``conv_k3_reference``) at every
    (C_in, C_out, stride) of the flagship encoders, at the ECG encoder's
    lengths for a batch of 8 ten-hour nights, with phi as the identity and as
@@ -247,7 +250,9 @@ entries also carry ``train_launches``, per training step, K1's
 ``trainer_launches`` and ``ingest_launches``, per training micro-step of
 phases 13 and 15, ``api_launches``, phase 14's f32 ``predict_on_folder``
 run, ``eog_launches``, per bf16 EOG forward of phase 17, and
-``drive_launches``, phase 18's fit with its eval and test passes, and K3's
+``drive_launches``, phase 18's fit with its eval and test passes, and
+their bf16 kernel's SASS counts (``sass_hgmma``, ``sass_utmaldg``,
+``sass_utmastg``) and ptxas ``registers`` and ``spill_bytes``; K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -267,6 +272,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from wav2sleep_tpu_torch.bench_conv import EOG_SHAPES
 from wav2sleep_tpu_torch.bench_conv import SHAPES as KERNEL_SHAPES
 from wav2sleep_tpu_torch.bench_conv import both_ms, cuda_ms
 from wav2sleep_tpu_torch.bench_ema import rates as ema_rates
@@ -369,6 +375,43 @@ def phase_build(k1, k3, cv, native):
         if regs:
             log(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, '
                 f'{min(smem, default=0)}-{max(smem, default=0)} bytes static smem, {spills} bytes spilled')
+
+
+# K1's and K2's bf16 kernel (csrc/conv_k3.cu) by a part of its mangled
+# name: the instantiation the kernels line's call runs (C_out 16, stride
+# 1, statistics off for K1 and on for K2).
+K1_KERNEL, K2_KERNEL = 'conv_k3_wgmma_kernelILi16ELi1ELb0E', 'conv_k3_wgmma_kernelILi16ELi1ELb1E'
+K1_OPCODES = ('HGMMA', 'UTMALDG', 'UTMASTG', 'HMMA', 'LDSM')
+
+
+def k1_sass_evidence(k1, cuda_build) -> dict:
+    """The proof of K1's and K2's route in the built library's SASS: each
+    of the 16 bf16 instantiations (C_out x stride x statistics) issues
+    wgmma (HGMMA), TMA loads (UTMALDG) and stores (UTMASTG) and spills
+    nothing (ptxas), and no kernel of the library has an mma.sync (HMMA) or
+    an ldmatrix (LDSM); raises otherwise. Returns, for ``conv_k3`` and
+    ``conv_k3_stats``, their line's kernel's counts, registers and spills."""
+    counts = cuda_build.sass_counts(cuda_build.sass(cuda_build.library_path('conv_k3.cu')), K1_OPCODES)
+    ptxas = cuda_build.ptxas_report(k1.BUILD_LOG)
+    bf16 = {fn: c for fn, c in counts.items() if 'conv_k3_wgmma_kernel' in fn}
+    if len(bf16) != 16 or any(fn not in ptxas for fn in bf16):
+        raise AssertionError(f'conv_k3: {len(bf16)} bf16 kernels in the SASS, expected 16 with a ptxas report')
+    for fn, c in bf16.items():
+        if min(c['HGMMA'], c['UTMALDG'], c['UTMASTG']) < 1 or ptxas[fn]['spill_bytes'] != 0:
+            raise AssertionError(f'conv_k3: {fn} has {c} in its SASS and spills {ptxas[fn]["spill_bytes"]} bytes')
+    if any(c['HMMA'] or c['LDSM'] for c in counts.values()):
+        raise AssertionError(f'conv_k3: an mma.sync or ldmatrix is left in the library: {counts}')
+    regs = [ptxas[fn]['registers'] for fn in bf16]
+    log(f'conv_k3: 16 bf16 kernels on wgmma and TMA (HGMMA, UTMALDG, UTMASTG in each), {min(regs)}-{max(regs)} '
+        f'registers, 0 bytes spilled; no HMMA or LDSM in the library')
+    evidence = {}
+    for name, key in (('conv_k3', K1_KERNEL), ('conv_k3_stats', K2_KERNEL)):
+        (fn,) = [fn for fn in bf16 if key in fn]
+        evidence[name] = {**{f'sass_{op.lower()}': bf16[fn][op] for op in ('HGMMA', 'UTMALDG', 'UTMASTG')},
+                          'registers': ptxas[fn]['registers'], 'spill_bytes': ptxas[fn]['spill_bytes']}
+        log(f'conv_k3: {name} kernel {fn}: SASS ' + ', '.join(f'{op} {bf16[fn][op]}' for op in K1_OPCODES)
+            + f'; ptxas {ptxas[fn]["registers"]} registers, {ptxas[fn]["spill_bytes"]} bytes spilled')
+    return evidence
 
 
 def phase_k1(torch, F, k1, block_stats, shapes=KERNEL_SHAPES, tag='K1', timed=('float32', 'bfloat16')):
@@ -2496,15 +2539,6 @@ def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
 EOG_SIGNALS = ('EOG-L', 'EOG-R')
 EOG_CLASSES = 5
 EOG_NIGHTS = 8
-EOG_T0 = 4096 * 1200
-# (C_in, C_out, stride, T): every K1 shape of the EOG encoders at its first
-# length, and blocks 0 and 1 at both of theirs.
-EOG_SHAPES = [
-    (16, 16, 1, EOG_T0), (16, 16, 2, EOG_T0), (16, 16, 1, EOG_T0 // 2), (16, 16, 2, EOG_T0 // 2),
-    (16, 32, 1, EOG_T0 // 4), (32, 32, 1, EOG_T0 // 4), (32, 32, 2, EOG_T0 // 4), (32, 64, 1, EOG_T0 // 16),
-    (64, 64, 1, EOG_T0 // 16), (64, 64, 2, EOG_T0 // 16), (64, 128, 1, EOG_T0 // 64),
-    (128, 128, 1, EOG_T0 // 64), (128, 128, 2, EOG_T0 // 64),
-]
 EOG_TRAIN_BATCH_BF16, EOG_TRAIN_BATCH_F32 = 4, 16  # the drive's batch over q8; the config's f32 batch
 EOG_TRAIN_SEED = 19
 
@@ -2904,6 +2938,7 @@ def main() -> int:
     log(f'nvidia-smi: {card}')
 
     phase_build(k1, k3, cv, native)
+    k1_evidence = k1_sass_evidence(k1, cuda_build)
     with torch.inference_mode():
         k1_err, k1_line = phase_k1(torch, F, k1, bd.block_stats)
         k2_err, k2_line = phase_k2(torch, k1, bd.block_stats)
@@ -2948,18 +2983,19 @@ def main() -> int:
         # api_launches: phase 14's f32 predict_on_folder run;
         # ingest_launches: per training micro-step of phase 15's main();
         # eog_launches: per bf16 wav2sleep-eog forward of phase 17 (a);
-        # drive_launches: phase 18's reduced drive, its fit, eval and test.
+        # drive_launches: phase 18's reduced drive, its fit, eval and test;
+        # the SASS counts and ptxas registers of the kernel the call runs.
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
              train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api,
              ingest_launches=k1_ingest, eog_launches=k1_eog, drive_launches=k1_drive, max_abs_err=k1_err,
-             **k1_line),
+             **k1_line, **k1_evidence['conv_k3']),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
         # launches: the same path in the kernel-statistics configuration;
         # train_launches: per training step of phase 11 (c).
         dict(name='conv_k3_stats', route='cuda', source=source + 'conv_k3.cu',
              replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=stats_counts['K2'],
-             train_launches=k2_train, max_abs_err=k2_err, **k2_line),
+             train_launches=k2_train, max_abs_err=k2_err, **k2_line, **k1_evidence['conv_k3_stats']),
         # K3 line: the first 65,536 samples of one serving batch's 32 rows;
         # causal_flagship_launches: phase 12 (b)'s pass.
         dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',

@@ -25,8 +25,9 @@ from wav2sleep_tpu_torch.ops import ema_norm
 pytestmark = pytest.mark.cuda
 
 # Output times per tile of the bf16 kernel with C_in = C_out, by (C_out,
-# stride): ``w2s_conv_k3_tile``, checked by ``test_bf16_tiles``.
-BF16_TILE = {(16, 1): 512, (16, 2): 256, (32, 1): 256, (32, 2): 128,
+# stride): ``w2s_conv_k3_tile``, checked by ``test_bf16_tiles``. A tile is
+# 128 / C_out wgmma tiles of 64 rows at either stride.
+BF16_TILE = {(16, 1): 512, (16, 2): 512, (32, 1): 256, (32, 2): 256,
              (64, 1): 128, (64, 2): 128, (128, 1): 64, (128, 2): 64}
 # The same for the f32 kernel (any C_in), checked by ``test_f32_tiles``.
 F32_TILE = {(16, 1): 512, (16, 2): 512, (32, 1): 512, (32, 2): 512,
@@ -188,6 +189,38 @@ def test_bf16_tiles(card):
     assert {key: lib.w2s_conv_k3_tile(key[0], key[0], key[1], 1) for key in BF16_TILE} == BF16_TILE
 
 
+@pytest.mark.parametrize('co', k1.SUPPORTED_C_OUT)
+def test_bf16_plan_fits_every_shape(card, co):
+    """Every C_in 8..128 at both strides has a plan: whole wgmma tiles of 64
+    rows, an even ring of at least 2 stages (each consumer warpgroup owns
+    every other stage), and shared memory within a block's 232,448 bytes."""
+    for ci in range(k1.C_IN_RANGE[0], k1.C_IN_RANGE[1] + 1):
+        for stride in (1, 2):
+            plan = k1.bf16_plan(co, ci, stride)
+            assert plan['tile'] > 0 and plan['tile'] % 64 == 0 and plan['tile'] <= 8192 // co, (ci, stride, plan)
+            assert plan['stages'] >= 2 and plan['stages'] % 2 == 0, (ci, stride, plan)
+            assert 0 < plan['smem'] <= 232_448, (ci, stride, plan)
+
+
+def test_bf16_kernels_run_on_wgmma_and_tma(card):
+    """The built library's SASS: each of the 16 bf16 instantiations (C_out x
+    stride x statistics) issues wgmma (HGMMA), TMA loads (UTMALDG) and TMA
+    stores (UTMASTG) and spills nothing (ptxas); no kernel of the library
+    has an mma.sync (HMMA) or an ldmatrix (LDSM)."""
+    from wav2sleep_tpu_torch.ops import cuda_build
+
+    k1.build()
+    ops = ('HGMMA', 'UTMALDG', 'UTMASTG', 'HMMA', 'LDSM')
+    counts = cuda_build.sass_counts(cuda_build.sass(cuda_build.library_path('conv_k3.cu')), ops)
+    ptxas = cuda_build.ptxas_report(k1.BUILD_LOG)
+    bf16 = {name: c for name, c in counts.items() if 'conv_k3_wgmma_kernel' in name}
+    assert len(bf16) == 16, sorted(counts)
+    for name, c in bf16.items():
+        assert min(c['HGMMA'], c['UTMALDG'], c['UTMASTG']) >= 1, (name, c)
+        assert ptxas[name]['spill_bytes'] == 0, (name, ptxas[name])
+    assert all(c['HMMA'] == 0 and c['LDSM'] == 0 for c in counts.values()), counts
+
+
 def test_f32_tiles(card):
     lib = k1.build()
     for ci in (8, 12, 128):
@@ -225,6 +258,70 @@ def test_misaligned_input_takes_the_narrow_path(card):
         torch.testing.assert_close(k1.conv_k3(shifted, w, *args), k1.conv_k3(x, w, *args), rtol=0, atol=0)
         for a, e in zip(k1.conv_k3_stats(shifted, w, *args, 1e-2), k1.conv_k3_stats(x, w, *args, 1e-2)):
             torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
+# Edges of the bf16 kernel's tiles, by (kind, B, T, C_in, C_out, stride):
+# 'edge', tiles that start and end at a batch row's edge (t_out two tiles)
+# with norm + gelu whose phi(0) is far from 0, so a window row outside [0,
+# T) left at phi(0) shows; 'odd', odd T at stride 2 (the odd window's last
+# row past T); 'shift', an x that is not 16-byte aligned (the producer's
+# plain loads); 'narrow', C_in 8, 12 and 24 (K padded with zero weights; 12
+# staged by plain loads).
+EDGE_CASES = (
+    [('edge', 3, s * 2 * BF16_TILE[co, s], co, co, s) for co, s in BF16_TILE]
+    + [('odd', 2, 2 * BF16_TILE[co, 2] + d, co, co, 2) for co in k1.SUPPORTED_C_OUT for d in (-1, 1)]
+    + [('shift', 2, 3 * BF16_TILE[co, s] + 7, co, co, s) for co, s in BF16_TILE]
+    + [('narrow', 2, 1003, ci, co, s) for ci in (8, 12, 24) for co in (16, 128) for s in (1, 2)]
+)
+
+
+@pytest.mark.parametrize('kind,B,T,ci,co,stride', EDGE_CASES)
+def test_bf16_tile_edges(card, kind, B, T, ci, co, stride):
+    """K1 against plain within 2**-6 of |y| + rms(y), K2's y as K1's and its
+    statistics as block_stats' of that y, identity and norm + gelu, with mu
+    less 3 so that phi(0) = gelu(3 inv) is far from the zero padding."""
+    x, w, b, mu, inv = _inputs(B, T, ci, co, card, seed=T + ci + co + stride)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    if kind == 'shift':
+        flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=card)
+        x = flat[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    for args in ((b, None, None, stride, None), (b, mu - 3.0, inv, stride, 'gelu')):
+        got = k1.conv_k3(x, w, *args)
+        ref = k1.conv_k3_reference(x, w, *args).float()
+        assert got.shape == ref.shape == (B, k1.output_length(T, stride), co)
+        assert bool(((got.float() - ref).abs() <= 2**-6 * (ref.abs() + ref.square().mean().sqrt())).all())
+        y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, 1e-2)
+        assert torch.equal(y, got)
+        mu_r, inv_r = bd.block_stats(y, 1e-2)
+        torch.testing.assert_close(mu_k, mu_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv_k, inv_r, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_k2_stay_right_through_back_to_back_calls(card):
+    """8,000 bf16 K1 calls (identity) and 8,000 K2 calls (norm + gelu) in a
+    row at the flagship's 16 -> 16 stride-1 shape (B=8 x 1,228,800: 145
+    tiles a block through the ring), as V7's test does: no fault, and the
+    last outputs still match their plain versions. Under load a tile's load
+    can land late, which a ring whose stages both consumers take in turn
+    would let a parity wait pass early."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    x32 = torch.randn((8, 1_228_800, 16), device=card, generator=gen)
+    mu, inv = bd.block_stats(x32, 1e-2)
+    x = x32.bfloat16()
+    del x32
+    w = (torch.randn((3, 16, 16), device=card, generator=gen) / np.sqrt(48)).bfloat16()
+    b = (torch.randn((16,), device=card, generator=gen) * 0.1).bfloat16()
+    for _ in range(8000):
+        got = k1.conv_k3(x, w, b)
+        stats = k1.conv_k3_stats(x, w, b, mu, inv, 1, 'gelu', 1e-2)
+    torch.cuda.synchronize()
+    for y, args in ((got, (b,)), (stats[0], (b, mu, inv, 1, 'gelu'))):
+        ref = k1.conv_k3_reference(x, w, *args).float()
+        assert bool(((y.float() - ref).abs() <= 2**-6 * (ref.abs() + ref.square().mean().sqrt())).all())
+    mu_r, inv_r = bd.block_stats(stats[0], 1e-2)
+    torch.testing.assert_close(stats[1], mu_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[2], inv_r, rtol=1e-5, atol=1e-5)
 
 
 def test_convblock_kernel_stats_on_the_card(card, monkeypatch):
@@ -1099,7 +1196,14 @@ def test_k1_launches_on_its_inputs_device(card):
 def test_two_replica_q16_pipeline_on_the_card_is_one_replica(card, tmp_path):
     """q16 serving over devices=['cuda:0', 'cuda:0'] (a replica of the
     weights each, a block of each batch each, each on its own stream): the
-    hypnograms of one replica exactly, K1 launched by both replicas."""
+    hypnograms of one replica exactly, K1 launched by both replicas. The
+    one replica serves at the replicas' block size (2 rows), so that every
+    forward of both runs sees the same blocks: the bf16 forward on K1 is not
+    batch-invariant (torch's var_mean over time of K1's channels-last
+    output takes another reduction order at another batch, so a B=8
+    forward's first rows differ from a B=4 forward's in the logits, on the
+    kernel before the wgmma one as well), so one replica at the whole batch
+    can split a near-tie the other way."""
     from wav2sleep_tpu_torch import pipeline as tpipe
     from wav2sleep_tpu_torch.data.edf import write_edf
     from wav2sleep_tpu_torch.models.wav2sleep import build_wav2sleep, flagship_config
@@ -1115,10 +1219,11 @@ def test_two_replica_q16_pipeline_on_the_card_is_one_replica(card, tmp_path):
         write_edf(fp, sigs, {'ECG': 256.0, 'Thor': 32.0}, physical_ranges={'ECG': (-5, 5), 'Thor': (-2, 2)},
                   record_duration=30.0)
         fps.append(fp)
-    kw = dict(batch_size=4, max_length_hours=6 / 120, precision='bfloat16')
-    one = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], device='cuda', **kw).run(fps))
+    kw = dict(max_length_hours=6 / 120, precision='bfloat16')
+    one = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], device='cuda', batch_size=2, **kw).run(fps))
     before = k1.LAUNCHES
-    two = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], devices=['cuda:0', 'cuda:0'], **kw).run(fps))
+    two = dict(tpipe.StreamingPipelineQ16(model, ['ECG', 'THX'], devices=['cuda:0', 'cuda:0'], batch_size=4,
+                                          **kw).run(fps))
     assert (k1.LAUNCHES - before) % 2 == 0 and k1.LAUNCHES > before
     assert list(two) == list(one) == fps
     for fp in fps:

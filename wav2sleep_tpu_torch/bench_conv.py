@@ -3,19 +3,21 @@
     python -m wav2sleep_tpu_torch.bench_conv [--label NAME] [--json FILE] [--dtype float32]
 
 For A/Bs across versions of ``csrc/conv_k3.cu``: it uses only functions the
-package has had since K2 was ported (``conv_k3``, ``conv_k3_stats``,
-``flagship_model``, ``block_domain.KERNEL_STATS``), so a copy of this file
-placed in an older checkout's package times that checkout's kernels. Run the
-versions in one call, in the order A, B, B, A. It prints, and writes to
-``--json``:
+package has had since wav2sleep-eog was ported (``conv_k3``,
+``conv_k3_stats``, ``flagship_model`` with its ``variant``, ``VARIANTS``,
+``block_domain.KERNEL_STATS``), so a copy of this file placed in an older
+checkout's package times that checkout's kernels. Run the versions in one
+call, in the order A, B, B, A. It prints, and writes to ``--json``:
 
-- per flagship encoder shape (B=8 ten-hour nights, each shape at its first
-  length in the ECG encoder), in ``--dtype`` (bfloat16 by default), phi the
-  identity and norm + gelu: K1 and K2, and ``F.conv1d`` (TF32 off) for the
-  identity, timed two ways, CUDA events around one call (median of 10) and
-  around runs of 10 back-to-back calls (median of 5);
-- K1 and K2 summed over the 80 k3 convs of one bf16 flagship forward, each
-  call timed both ways on the inputs the forward gives it;
+- per encoder shape of the flagship (B=8 ten-hour nights, each shape at its
+  first length in the ECG encoder) and of wav2sleep-eog (each at its first
+  length, blocks 0 and 1 at both of theirs), in ``--dtype`` (bfloat16 by
+  default), phi the identity and norm + gelu: K1 and K2, and ``F.conv1d``
+  (TF32 off) for the identity, timed two ways, CUDA events around one call
+  (median of 10) and around runs of 10 back-to-back calls (median of 5);
+- K1 and K2 summed over the 80 k3 convs of one bf16 flagship forward and
+  the 58 of one wav2sleep-eog forward, each call timed both ways on the
+  inputs the forward gives it;
 - the host's time per K1 call at a call small enough that the host sets
   the pace (wall clock over 1,000 calls, no sync between them);
 - the bf16 forward (CUDA events, median of 3) with kernel statistics off
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .models import layers
-from .models.wav2sleep import flagship_model
+from .models.wav2sleep import VARIANTS, flagship_model
 from .ops import block_domain as bd
 from .ops import conv_k3 as k1
 from .pipeline import grid_length
@@ -50,6 +52,15 @@ SHAPES = [
     (16, 16, 1, 1_228_800), (16, 16, 2, 1_228_800), (16, 32, 1, 307_200), (32, 32, 1, 307_200),
     (32, 32, 2, 307_200), (32, 64, 1, 76_800), (64, 64, 1, 76_800), (64, 64, 2, 76_800),
     (64, 128, 1, 19_200), (128, 128, 1, 19_200), (128, 128, 2, 19_200),
+]
+# The same for wav2sleep-eog's encoders (4,096 samples an epoch), with
+# blocks 0 and 1 (16 channels) at both of their lengths.
+EOG_T0 = 4096 * 1200
+EOG_SHAPES = [
+    (16, 16, 1, EOG_T0), (16, 16, 2, EOG_T0), (16, 16, 1, EOG_T0 // 2), (16, 16, 2, EOG_T0 // 2),
+    (16, 32, 1, EOG_T0 // 4), (32, 32, 1, EOG_T0 // 4), (32, 32, 2, EOG_T0 // 4), (32, 64, 1, EOG_T0 // 16),
+    (64, 64, 1, EOG_T0 // 16), (64, 64, 2, EOG_T0 // 16), (64, 128, 1, EOG_T0 // 64),
+    (128, 128, 1, EOG_T0 // 64), (128, 128, 2, EOG_T0 // 64),
 ]
 
 
@@ -78,10 +89,10 @@ def both_ms(fn) -> tuple[float, float]:
     return cuda_ms(fn), cuda_ms(fn, reps=5, inner=10)
 
 
-def per_shape(dtype=torch.bfloat16) -> list[dict]:
+def per_shape(dtype=torch.bfloat16, shapes=SHAPES) -> list[dict]:
     gen = torch.Generator(device='cuda').manual_seed(0)
     rows = []
-    for ci, co, stride, T in SHAPES:
+    for ci, co, stride, T in shapes:
         x32 = torch.randn((BATCH, T, ci), device='cuda', generator=gen) * 1.5 + 0.2
         x = x32.to(dtype)
         w = ((torch.rand((3, ci, co), device='cuda', generator=gen) * 2 - 1) / (3 * ci) ** 0.5).to(dtype)
@@ -134,6 +145,20 @@ def host_us_per_call(calls: int = 1000) -> float:
     return 1e6 * wall / calls
 
 
+def eog_forward_convs() -> dict:
+    """K1 and K2 over one bf16 wav2sleep-eog forward's calls."""
+    model = flagship_model(variant='eog', dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device='cuda').manual_seed(4)
+    xb = {c: torch.randn((BATCH, grid_length(c, HOURS)), device='cuda', generator=g).bfloat16()
+          for c in VARIANTS['eog'][1]}
+    fc = forward_convs(model, xb)
+    print(f'bench_conv: over one eog forward ({fc["calls"]} calls), ms one call / back to back: '
+          f'K1 {fc["k1"][0]:.3f} / {fc["k1"][1]:.3f}, K2 {fc["k2"][0]:.3f} / {fc["k2"][1]:.3f}', flush=True)
+    del model, xb
+    torch.cuda.empty_cache()
+    return fc
+
+
 def forward_parts(label: str) -> dict:
     """K1 and K2 over one bf16 forward's calls, the host's time per call and
     the forward with kernel statistics off and on."""
@@ -172,8 +197,10 @@ def main() -> None:
     out = {'label': args.label, 'card': card, 'dtype': args.dtype}
     with torch.inference_mode():
         out['shapes'] = per_shape(getattr(torch, args.dtype))
+        out['eog_shapes'] = per_shape(getattr(torch, args.dtype), EOG_SHAPES)
         if args.dtype == 'bfloat16':
             out.update(forward_parts(args.label))
+            out['eog_forward_convs'] = eog_forward_convs()
     if args.json:
         with open(args.json, 'w') as f:
             json.dump(out, f)

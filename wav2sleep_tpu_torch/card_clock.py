@@ -5,8 +5,10 @@
 A kernel bound by bytes can still be held back by the card's power limit:
 a card at its limit lowers its SM clock. For each rung of
 ``ops/conv_variants.py`` at x [8, 153,600, 128] bf16 (``copy``, ``mm1f``,
-``mm3``, ``mm3s``, ``v7`` with zero halos), or ``einsum`` (V3's library
-call, ``torch.einsum('bnc,kco->bno', x, W)``), it runs the call back to back
+``mm3``, ``mm3s``, ``v7`` with zero halos), ``einsum`` (V3's library call,
+``torch.einsum('bnc,kco->bno', x, W)``), ``k1`` (K1, ``conv_k3``, at 128 ->
+128 stride 1 on the same x and W) or ``k1_flagship`` (the same conv at the
+flagship's 128 -> 128 shape, x [8, 19,200, 128]), it runs the call back to back
 for 3 seconds while ``nvidia-smi`` samples ``clocks.sm`` and
 ``power.draw`` every 200 ms. It prints the card's name and power limit,
 then one JSON line per rung: the samples after the first second (the power
@@ -23,10 +25,11 @@ import time
 import torch
 
 from . import profile_variants
+from .ops import conv_k3 as k1
 from .ops import conv_variants as cv
 from .utils import card_line
 
-RUNGS = ('copy', 'mm1f', 'mm3', 'mm3s', 'v7', 'einsum')
+RUNGS = ('copy', 'mm1f', 'mm3', 'mm3s', 'v7', 'einsum', 'k1', 'k1_flagship')
 PERIOD_MS, LAG_S, SECONDS = 200, 1.0, 3.0
 
 
@@ -67,10 +70,12 @@ def run(tb: int = 2048) -> list[dict]:
     print(f'nvidia-smi: {card_line()}', flush=True)
     x, w = profile_variants.inputs(8, 153_600, 'cuda')
     zeros = torch.zeros((8, 153_600 // tb * 8, cv.D), dtype=torch.bfloat16, device='cuda')
+    x_flagship = x[:, :19_200].contiguous()
     calls = {
         'copy': lambda: cv.copy(x, tb), 'mm1f': lambda: cv.mm1f(x, w[0], tb), 'mm3': lambda: cv.mm3(x, w, tb),
         'mm3s': lambda: cv.mm3s(x, w, tb), 'v7': lambda: cv.v7(x, zeros, zeros, w, tb),
         'einsum': lambda: torch.einsum('bnc,kco->bno', x, w),
+        'k1': lambda: k1.conv_k3(x, w), 'k1_flagship': lambda: k1.conv_k3(x_flagship, w),
     }
     results = []
     with torch.inference_mode():

@@ -72,8 +72,9 @@
 //   32 KB = 192 KB; V4 4 x 16 KB + 32 KB + 96 KB + 6 KB of exchange rows;
 //   V7 4 x 18 KB + 32 KB + 96 KB = 200 KB.
 // - Tensor maps are encoded on the host per call with
-//   cuTensorMapEncodeTiled, looked up through the runtime's
-//   cudaGetDriverEntryPointByVersion (no -lcuda), and passed as
+//   cuTensorMapEncodeTiled, looked up once through the runtime's
+//   cudaGetDriverEntryPointByVersion (no -lcuda; hopper.cuh, which also
+//   holds the mbarrier, TMA and wgmma helpers), and passed as
 //   __grid_constant__ parameters.
 //
 // V4's shift, on the same loop:
@@ -152,8 +153,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace wgmma_mm {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 128;                      // channels in and out
@@ -216,113 +220,6 @@ constexpr size_t smem_bytes() {
          (size_t)taps<MODE>() * kWTapBytes + (MODE == 4 ? kConsumers * kExBytes : 0) + 8 * (2 * stages<MODE>() + 1);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
-}
-
-// Until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Generic-proxy writes to shared memory become visible to TMA and wgmma.
-__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// Box (c0 = channel, c1 = row) of the map into shared memory at dst; its
-// bytes complete a transaction of the mbarrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :
-      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-               :
-               : "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-
-// This thread's TMA stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
-
-// This thread's TMA stores have completed.
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-
-// Shared-memory descriptor of an operand in the 128-byte swizzle (layout
-// type 1): start address, leading byte offset (K-major: unused; N-major:
-// between the 64-wide halves of N) and 1024 bytes between groups of 8 rows.
-// The matrix base offset is 0: the operands lie in swizzle atoms at
-// 1024-byte aligned addresses, also where a start is not (V7).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t leading = 16) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(leading >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keeps reads of the accumulator after the wgmma wait that precedes it.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A (64 x 16, K-major) B (16 x 128, N-major), both bf16 from shared
-// memory, f32 sums; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // d (+)= the 64 rows at a @ W[j]: 8 k-steps of 16 channels, the second 64
 // channels BOX bytes after the first.
 template <int BOX = kBoxBytes>
@@ -331,7 +228,7 @@ __device__ __forceinline__ void tap_product(float (&d)[64], uint32_t a, uint32_t
   for (int kk = 0; kk < kD / 16; ++kk) {
     const uint32_t a_k = a + (kk / 4) * BOX + (kk % 4) * 32;
     const uint32_t b_k = ws + j * kWTapBytes + kk * 16 * 128;
-    wgmma_m64n128k16(d, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), accumulate || kk > 0);
+    wgmma<1>(d, sw128_desc(a_k), sw128_desc(b_k, kWHalfBytes), accumulate || kk > 0);
   }
 }
 
@@ -343,7 +240,7 @@ __device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty, uin
     mbar_init(empty + 8 * s, 128);
   }
   mbar_init(w_full, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  fence_mbar_init();
 }
 
 // The producer thread's load of the TAPS weight taps into ws.
@@ -654,42 +551,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wtid == 0) bulk_wait();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-inline int encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return -1;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
 // A map over rows x 128 bf16, boxes of 64 channels x box_rows rows,
 // 128-byte swizzle; reads outside the rows give zeros, writes there are
 // dropped.
-inline int row_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, long rows, int box_rows) {
+inline int row_map(CUtensorMap* map, const void* ptr, long rows, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {kD * sizeof(bf16)};
   const cuuint32_t box[2] = {kBoxCols, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return static_cast<int>(rc);
+  return bf16_map(map, ptr, 2, dims, strides, box);
 }
 
 template <int MODE>
@@ -699,12 +568,10 @@ int launch(const bf16* x, const bf16* w, bf16* y, long rows, int tb, cudaStream_
   const int n_tiles = static_cast<int>((rows + STEP - 1) / STEP);
   const void* kernel = reinterpret_cast<const void*>(mm_wgmma_kernel<MODE>);
   constexpr size_t smem = smem_bytes<MODE>();
-  EncodeTiled encode = nullptr;
   CUtensorMap x_map, y_map, w_map;
   int dev = 0, sms = 0, rc = 0;
-  if ((rc = encode_tiled(&encode)) != 0 || (rc = row_map(encode, &x_map, x, rows, kRows)) != 0 ||
-      (rc = row_map(encode, &y_map, y, rows, STEP)) != 0 ||
-      (rc = row_map(encode, &w_map, w, taps<MODE>() * kD, kD)) != 0 ||
+  if ((rc = row_map(&x_map, x, rows, kRows)) != 0 || (rc = row_map(&y_map, y, rows, STEP)) != 0 ||
+      (rc = row_map(&w_map, w, taps<MODE>() * kD, kD)) != 0 ||
       (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
       (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
       (rc = static_cast<int>(
@@ -723,12 +590,11 @@ inline int launch_v7(const bf16* x, const bf16* w, const bf16* xp, const bf16* x
   const int per_fn = (tb + kRows - 1) / kRows;
   const int n_tiles = static_cast<int>(rows / tb * per_fn);
   const void* kernel = reinterpret_cast<const void*>(v7_wgmma_kernel);
-  EncodeTiled encode = nullptr;
   CUtensorMap x_map, y_map, y8_map, w_map;
   int dev = 0, sms = 0, rc = 0;
-  if ((rc = encode_tiled(&encode)) != 0 || (rc = row_map(encode, &x_map, x, rows, kV7Rows)) != 0 ||
-      (rc = row_map(encode, &y_map, y, rows, kRows)) != 0 || (rc = row_map(encode, &y8_map, y, rows, 8)) != 0 ||
-      (rc = row_map(encode, &w_map, w, 3 * kD, kD)) != 0 || (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
+  if ((rc = row_map(&x_map, x, rows, kV7Rows)) != 0 || (rc = row_map(&y_map, y, rows, kRows)) != 0 ||
+      (rc = row_map(&y8_map, y, rows, 8)) != 0 || (rc = row_map(&w_map, w, 3 * kD, kD)) != 0 ||
+      (rc = static_cast<int>(cudaGetDevice(&dev))) != 0 ||
       (rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) != 0 ||
       (rc = static_cast<int>(
            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kV7Smem)))) != 0)

@@ -21,11 +21,12 @@ plain version is ``conv_k3_reference`` followed by ``block_stats``.
 The TPU kernel's space-to-depth weight embedding existed for the 128-lane
 MXU and is not carried over. On an H100 every bf16 shape of the encoders is
 bound by HBM bytes (24 to 192 FLOPs a byte, under the ~295 where the bf16
-tensor cores stop being bound by memory), so the bf16 kernel runs its
-products on the tensor cores (``mma.sync``), stages the weights once per
-persistent block, and streams x through a ring of asynchronous copies; f32
-keeps a CUDA-core loop, which is exact against the plain version. The
-layout and the reasons are noted at the top of ``csrc/conv_k3.cu``.
+tensor cores stop being bound by memory), so the bf16 kernel is Hopper's
+warp-specialised loop: a TMA ring of x windows feeding ``wgmma`` in two
+consumer warpgroups of persistent blocks, the weights staged once per
+block, y stored by TMA; f32 keeps a CUDA-core loop, which is exact against
+the plain version. The layout and the reasons are noted at the top of
+``csrc/conv_k3.cu``, Hopper's building blocks in ``csrc/hopper.cuh``.
 
 The library is compiled with ``nvcc`` on first use (``ops/cuda_build.py``)
 into ``build/kernels/`` at the repository root, and loaded with ``ctypes``.
@@ -36,7 +37,9 @@ on-card check compare the kernels with.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
 
 import torch
@@ -70,6 +73,8 @@ BUILD_LOG = ''
 def build() -> ctypes.CDLL:
     """Compile ``csrc/conv_k3.cu`` (once per source and flags) and load it."""
     global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -82,6 +87,8 @@ def build() -> ctypes.CDLL:
         lib.w2s_conv_k3_tile.restype = i32
         lib.w2s_conv_k3_stats.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr]
         lib.w2s_conv_k3_stats.restype = i32
+        lib.w2s_conv_k3_smem.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
+        lib.w2s_conv_k3_smem.restype = i32
         _lib = lib
         return lib
 
@@ -155,14 +162,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _on_device(x):
+    """x's device entered only when it is not the current one (entering it
+    costs the host more than the launch), and its current raw stream."""
+    index = x.device.index
+    here = index == torch.cuda.current_device()
+    return contextlib.nullcontext() if here else torch.cuda.device(index), torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile(c_out: int, c_in: int, stride: int, dtype_code: int) -> int:
+    """Output times of K2's statistics tile (``w2s_conv_k3_tile``)."""
+    return build().w2s_conv_k3_tile(c_out, c_in, stride, dtype_code)
+
+
+def bf16_plan(c_out: int, c_in: int, stride: int) -> dict:
+    """The bf16 kernel's launch plan for these channels and stride, as the
+    library computes it: output times a tile, dynamic shared memory bytes
+    and ring stages (0 for all if unsupported)."""
+    lib = build()
+    stages = ctypes.c_int(0)
+    smem = lib.w2s_conv_k3_smem(c_out, c_in, stride, ctypes.byref(stages))
+    return {'tile': lib.w2s_conv_k3_tile(c_out, c_in, stride, 1), 'smem': smem, 'stages': stages.value}
+
+
 def _launch(x, w, bias, mu, inv, stride, act):
     global LAUNCHES
     B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
     t_out = output_length(T, stride)
     y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=x.device)
     lib = build()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    device, stream = _on_device(x)
+    with device:
         rc = lib.w2s_conv_k3(
             x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(mu), _ptr(inv), y.data_ptr(),
             B, T, t_out, c_in, c_out, stride, _ACT_CODES[act], _DTYPE_CODES[x.dtype], stream,
@@ -178,15 +209,14 @@ def _launch_stats(x, w, bias, mu, inv, stride, act, eps):
     B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
     t_out = output_length(T, stride)
     lib = build()
-    tile = lib.w2s_conv_k3_tile(c_out, c_in, stride, _DTYPE_CODES[x.dtype])
-    n_tiles = -(-t_out // tile)
+    n_tiles = -(-t_out // _tile(c_out, c_in, stride, _DTYPE_CODES[x.dtype]))
     dev = x.device
     y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=dev)
     part = torch.empty((2, B, c_out, n_tiles), dtype=torch.float32, device=dev)
     mu_out = torch.empty((B, c_out), dtype=torch.float32, device=dev)
     inv_out = torch.empty((B, c_out), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    device, stream = _on_device(x)
+    with device:
         rc = lib.w2s_conv_k3_stats(
             x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(mu), _ptr(inv), y.data_ptr(),
             part.data_ptr(), mu_out.data_ptr(), inv_out.data_ptr(),
