@@ -53,7 +53,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from . import native
+from . import native, tracing
 from .data.edf import EdfFile, channel_norm_affine, get_column_match, read_edf_header, units_map_first
 from .data.preprocessing import resample_uniform, signal_target_grid
 from .ops.ema_norm import ema_normalize
@@ -696,7 +696,9 @@ def _stream(fps: list[str], batch_size: int, get_slots: Callable[[], list[_Slot]
     skipped), pads a short batch by repeating its last row and enqueues
     ``launch(slot)``; the consumer fetches each result and trims every
     hypnogram to its night's epochs. ``put`` gives up once the consumer has
-    stopped, and the consumer joins the producer."""
+    stopped, and the consumer joins the producer. Each part runs in a
+    program span (``tracing``; ``pipeline/*``), recorded while the recorder
+    is on or torch's profiler records on the consumer's thread."""
     if not fps:
         return
     # Two slots: the producer fills one while the other's batch runs.
@@ -723,7 +725,8 @@ def _stream(fps: list[str], batch_size: int, get_slots: Callable[[], list[_Slot]
                 slots = get_slots()
                 slot = slots[used % len(slots)]
                 used += 1
-                slot.wait_free()
+                with tracing.span('pipeline/slot_wait'):
+                    slot.wait_free()
                 good, counts = [], []
                 for fp in chunk:
                     try:
@@ -737,30 +740,36 @@ def _stream(fps: list[str], batch_size: int, get_slots: Callable[[], list[_Slot]
                     continue
                 for i in range(len(good), batch_size):
                     slot.dup_row(len(good) - 1, i)
-                if not stop_aware_put(out_q, stop, ('ok', good, counts, launch(slot))):
-                    return
+                with tracing.span('pipeline/launch'):
+                    result = launch(slot)
+                with tracing.span('pipeline/put'):
+                    if not stop_aware_put(out_q, stop, ('ok', good, counts, result)):
+                        return
             stop_aware_put(out_q, stop, ('done', None, None, None))
         except Exception as e:  # noqa: BLE001 - handed to the consumer, which raises it
             stop_aware_put(out_q, stop, ('err', e, None, None))
 
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
-    try:
-        while True:
-            kind, chunk, counts, result = out_q.get()
-            if kind == 'done':
-                return
-            if kind == 'err':
-                raise chunk
-            # One tensor, or a replica's block each (data-parallel serving).
-            preds = np.concatenate([r.cpu().numpy() for r in result]) if isinstance(result, list) \
-                else result.cpu().numpy()
-            for i, fp in enumerate(chunk):
-                hyp = preds[i]
-                yield fp, hyp[: min(int(counts[i]), len(hyp))]
-    finally:
-        stop.set()
-        thread.join()  # bounded: stop_aware_put polls stop every 0.2 s
+    with tracing.follow_profiler():
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                with tracing.span('pipeline/result_wait'):
+                    kind, chunk, counts, result = out_q.get()
+                if kind == 'done':
+                    return
+                if kind == 'err':
+                    raise chunk
+                with tracing.span('pipeline/fetch'):
+                    # One tensor, or a replica's block each (data-parallel serving).
+                    preds = np.concatenate([r.cpu().numpy() for r in result]) if isinstance(result, list) \
+                        else result.cpu().numpy()
+                for i, fp in enumerate(chunk):
+                    hyp = preds[i]
+                    yield fp, hyp[: min(int(counts[i]), len(hyp))]
+        finally:
+            stop.set()
+            thread.join()  # bounded: stop_aware_put polls stop every 0.2 s
 
 
 class _Pipeline:
@@ -793,7 +802,8 @@ class _Pipeline:
     def _timed_fill(self, slot: _Slot, fp: str, row: int) -> int:
         t0 = time.perf_counter()
         try:
-            return self._fill(slot, fp, row)
+            with tracing.span('pipeline/fill'):
+                return self._fill(slot, fp, row)
         finally:
             self.fill_seconds += time.perf_counter() - t0
 
@@ -832,7 +842,10 @@ class StreamingPipeline(_Pipeline):
         return self.decoder.decode_into(fp, {c: slot.rows_np[c][row] for c in self.signals})
 
     def _launch(self, slot: _Slot) -> torch.Tensor:
-        return self.forward(slot.to_device(self.device))
+        with tracing.span('pipeline/h2d'):
+            x = slot.to_device(self.device)
+        with tracing.span('pipeline/enqueue'):
+            return self.forward(x)
 
     def warmup(self) -> None:
         """One forward on the pooled buffers (builds kernels, warms caches)."""
@@ -911,8 +924,12 @@ class StreamingPipelineQ16(_Pipeline):
         for i, (dev, forward, stream) in enumerate(self._replicas):
             block = slice(i * rows, (i + 1) * rows)
             with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                q = slot.to_device(dev, block)
-                preds = forward(q, *slot.meta_fields(self.meta_dtype.names, dev, block))
+                with tracing.span('pipeline/h2d'):
+                    q = slot.to_device(dev, block)
+                with tracing.span('pipeline/meta_copy'):
+                    meta = slot.meta_fields(self.meta_dtype.names, dev, block)
+                with tracing.span('pipeline/enqueue'):
+                    preds = forward(q, *meta)
             if stream is not None:
                 # The consumer reads the block on the device's default stream.
                 default = torch.cuda.default_stream(dev)
@@ -1012,16 +1029,19 @@ class StreamingPipelineRaw(_Pipeline):
         return self.extractor.extract_into(fp, slot.rows_np, slot.meta, row)
 
     def _launch(self, slot: _Slot) -> torch.Tensor:
-        raw = slot.to_device(self.device)
-        a, b = slot.meta_fields(('a', 'b'), self.device)
-        base_int, base_frac, ratio = {}, {}, {}
-        for c in self.signals:
-            rows = [self._anchors(fs, c) for fs in slot.meta[c]['fs']]
-            base_int[c] = torch.from_numpy(np.stack([r[0] for r in rows])).to(self.device)
-            base_frac[c] = torch.from_numpy(np.stack([r[1] for r in rows])).to(self.device)
-            ratio[c] = torch.from_numpy(np.asarray([r[2] for r in rows], np.float32)).to(self.device)
-        n, n_pad, present = slot.meta_fields(('n', 'n_pad', 'present'), self.device)
-        return self.forward(raw, a, b, base_int, base_frac, ratio, n, n_pad, present)
+        with tracing.span('pipeline/h2d'):
+            raw = slot.to_device(self.device)
+        with tracing.span('pipeline/meta_copy'):
+            a, b = slot.meta_fields(('a', 'b'), self.device)
+            base_int, base_frac, ratio = {}, {}, {}
+            for c in self.signals:
+                rows = [self._anchors(fs, c) for fs in slot.meta[c]['fs']]
+                base_int[c] = torch.from_numpy(np.stack([r[0] for r in rows])).to(self.device)
+                base_frac[c] = torch.from_numpy(np.stack([r[1] for r in rows])).to(self.device)
+                ratio[c] = torch.from_numpy(np.asarray([r[2] for r in rows], np.float32)).to(self.device)
+            n, n_pad, present = slot.meta_fields(('n', 'n_pad', 'present'), self.device)
+        with tracing.span('pipeline/enqueue'):
+            return self.forward(raw, a, b, base_int, base_frac, ratio, n, n_pad, present)
 
     def warmup(self, fp: str) -> None:
         """One forward on rows sized for ``fp`` (builds kernels, warms caches)."""

@@ -10,8 +10,9 @@ and prints, per step:
 
 - the wall time (CUDA events, median of 3) and the device time that
   ``torch.profiler`` records over 2 steps;
-- the step's spans (``train_step/forward``, ``train_step/optimizer``) and
-  the backward (the rest of the device time);
+- the step's spans (``train_step/forward``, ``train_step/optimizer``;
+  ``tracing``, on while the profiler records) and the backward (the rest
+  of the device time);
 - K1 and K2 (the ``_ConvK3`` / ``_ConvK3Stats`` forwards, recompute
   included) and the backward of those convs (``_ConvK3Backward`` /
   ``_ConvK3StatsBackward``: the plain version's forward and its gradient,
@@ -32,7 +33,7 @@ import statistics
 import torch
 from torch.autograd import DeviceType
 
-from . import train_bench
+from . import tracing, train_bench
 
 STEPS, ROWS = 2, 15
 EPOCHS = 1200  # ten hours of 30 s epochs, as train_bench's default
@@ -60,9 +61,11 @@ def main(argv=None) -> None:
     torch.cuda.reset_peak_memory_stats()
     train_bench.chain_ms(s, batch, 1)  # warm
     wall = statistics.median(train_bench.chain_ms(s, batch, 1)[0] for _ in range(3))
+    # The step's spans enter their record_function while the recorder is on.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof, tracing.follow_profiler():
         train_bench.chain_ms(s, batch, STEPS)
+    tracing.collect()
     avgs = prof.key_averages()
     n = STEPS
     # Device entries are the kernels and copies (the spans also appear on

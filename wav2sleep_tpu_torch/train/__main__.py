@@ -233,6 +233,8 @@ def _with_profile(trainer, log_dir: str) -> None:
     """Trace the first training epoch with ``torch.profiler`` (the
     reference's opt-in PyTorchProfiler): a Chrome trace in
     ``<log_dir>/profile``."""
+    from .. import tracing
+
     orig = trainer.train_epoch
 
     def traced(epoch):
@@ -241,8 +243,11 @@ def _with_profile(trainer, log_dir: str) -> None:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if trainer.device.type == 'cuda':
             activities.append(torch.profiler.ProfilerActivity.CUDA)
+        # The epoch's program spans (``tracing``) are recorded while the
+        # profiler is on; the trace holds their record_function twins.
         with torch.profiler.profile(activities=activities) as prof:
             out = orig(epoch)
+        tracing.collect()
         os.makedirs(os.path.join(log_dir, 'profile'), exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, 'profile', 'trace.json'))
         return out

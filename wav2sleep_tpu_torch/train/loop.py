@@ -34,6 +34,11 @@ same numbers and takes the same early-stopping and plateau decisions; only
 rank 0 writes ``metrics.jsonl``, the confusion figures, the checkpoints and
 the export.
 
+The epoch's parts run in program spans (``tracing``: ``trainer/load``,
+``trainer/stage`` and its claim, write and ship, ``trainer/step``,
+``trainer/drain``), recorded while the recorder is on or torch's profiler
+records on the epoch's thread.
+
 One deliberate difference from the JAX package: a run resumed at or past
 its last epoch returns the last epoch's val metrics from ``metrics.jsonl``
 (the JAX ``fit`` returns ``{}`` there).
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..log import log_aux_metrics, mlflow_module
 from ..ops.q8_transport import encode_batch, encode_batch_q16
 from ..parallel import mesh as pmesh
@@ -349,37 +355,42 @@ class Trainer:
         x, y, B = self._pad_batch(x, y, self._batch_target(y.shape[0], batch_size, whole=rank_rows))
         if rank_rows and self._split():
             x, y = pmesh.shard_batch(self.mesh, (x, y))
-        j = self.ring.claim()
-        y_buf = self.ring.buffer(j, 'labels', torch.float32, y.shape)
-        np.copyto(y_buf.numpy(), y, casting='same_kind')
-        staged: dict = {}
-        if transport is not None:
-            encode, code_dtype = TRANSPORT_CODES[transport]
-            pooled = {}
-            for k, v in x.items():
-                bufs = (self.ring.buffer(j, k, code_dtype, v.shape), self.ring.buffer(j, (k, 'peak'), torch.float32,
-                        v.shape[:1]), self.ring.buffer(j, (k, 'present'), torch.bool, v.shape[:1]))
-                staged[k] = bufs
-                pooled[k] = tuple(t.numpy() for t in bufs)
-            encode(x, slot=pooled)
-        else:
-            for k, v in x.items():
-                buf = staged[k] = self.ring.buffer(j, k, dtype, v.shape)
-                if dtype == torch.float32:
-                    np.copyto(buf.numpy(), v, casting='same_kind')
-                else:
-                    buf.copy_(torch.from_numpy(np.ascontiguousarray(v)))
-        dev = self.ring.ship(j, {**staged, 'labels': y_buf})
+        with tracing.span('trainer/stage/claim'):
+            j = self.ring.claim()
+        with tracing.span('trainer/stage/write'):
+            y_buf = self.ring.buffer(j, 'labels', torch.float32, y.shape)
+            np.copyto(y_buf.numpy(), y, casting='same_kind')
+            staged: dict = {}
+            if transport is not None:
+                encode, code_dtype = TRANSPORT_CODES[transport]
+                pooled = {}
+                for k, v in x.items():
+                    bufs = (self.ring.buffer(j, k, code_dtype, v.shape),
+                            self.ring.buffer(j, (k, 'peak'), torch.float32, v.shape[:1]),
+                            self.ring.buffer(j, (k, 'present'), torch.bool, v.shape[:1]))
+                    staged[k] = bufs
+                    pooled[k] = tuple(t.numpy() for t in bufs)
+                encode(x, slot=pooled)
+            else:
+                for k, v in x.items():
+                    buf = staged[k] = self.ring.buffer(j, k, dtype, v.shape)
+                    if dtype == torch.float32:
+                        np.copyto(buf.numpy(), v, casting='same_kind')
+                    else:
+                        buf.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+        with tracing.span('trainer/stage/ship'):
+            dev = self.ring.ship(j, {**staged, 'labels': y_buf})
         y_dev = dev.pop('labels')
         return (dev, y_dev), B
 
     def _stage_train(self, x, y):
-        if self.masker is not None:
-            validate_batch(x)
-        dtype = torch.bfloat16 if self.precision == 'bfloat16' else torch.float32
-        # Over a group the loader's batch is this rank's own rows already.
-        rows = getattr(self.datamodule, 'rank_batch_size', self.datamodule.batch_size)
-        return self._stage(x, y, rows, self.input_transport, dtype)[0]
+        with tracing.span('trainer/stage'):
+            if self.masker is not None:
+                validate_batch(x)
+            dtype = torch.bfloat16 if self.precision == 'bfloat16' else torch.float32
+            # Over a group the loader's batch is this rank's own rows already.
+            rows = getattr(self.datamodule, 'rank_batch_size', self.datamodule.batch_size)
+            return self._stage(x, y, rows, self.input_transport, dtype)[0]
 
     def _progress(self, it, desc: str):
         """Smoothed tqdm progress (the reference's CustomTQDMProgressBar);
@@ -392,6 +403,7 @@ class Trainer:
             return it
         return tqdm(it, desc=desc, smoothing=0.7, leave=False)
 
+    @tracing.follow_profiler()
     def train_epoch(self, epoch: int) -> dict[str, float]:
         self.ensure_state()
         losses: list[torch.Tensor] = []
@@ -400,11 +412,12 @@ class Trainer:
         pending: list = []
 
         def drain():
-            if pending:
-                np.add(cmat, torch.stack([m['cmat'] for m in pending]).sum(0).cpu().numpy(), out=cmat)
-                losses.extend(m['loss'] for m in pending)
-                pending.clear()
-            self._drain_host_ema()
+            with tracing.span('trainer/drain'):
+                if pending:
+                    np.add(cmat, torch.stack([m['cmat'] for m in pending]).sum(0).cpu().numpy(), out=cmat)
+                    losses.extend(m['loss'] for m in pending)
+                    pending.clear()
+                self._drain_host_ema()
 
         t0 = time.time()
         host_it = iter(self._progress(self.datamodule.train_loader(epoch), f'train e{epoch}'))
@@ -413,15 +426,18 @@ class Trainer:
         # loader, not the card, sets the step time.
         t_host = 0.0
         th0 = time.time()
-        nxt = next(host_it, None)
+        with tracing.span('trainer/load'):
+            nxt = next(host_it, None)
         t_host += time.time() - th0
         dev = self._stage_train(*nxt) if nxt is not None else None
         n = 0
         while dev is not None:
             step_before = self.state.step
-            self.state, metrics = self._train_step(self.state, dev, seed)
+            with tracing.span('trainer/step'):
+                self.state, metrics = self._train_step(self.state, dev, seed)
             th0 = time.time()
-            nxt = next(host_it, None)
+            with tracing.span('trainer/load'):
+                nxt = next(host_it, None)
             t_host += time.time() - th0
             dev = self._stage_train(*nxt) if nxt is not None else None
             if self.host_ema is not None:

@@ -26,9 +26,11 @@ the run's seed and the step (``step_seeds``, the counterpart of JAX's
 ``fold_in``), so a step is reproducible and the global RNG streams are left
 as they were. In f32 the forward and the backward run in full f32
 (``utils.full_f32``): under torch's default flags cuDNN would run the f32
-convs in TF32. The forward and the optimizer run inside ``record_function``
-spans (``train_step/forward``, ``train_step/optimizer``) that
-``profile_train`` reads; the backward runs on autograd's own thread.
+convs in TF32. The inputs (decode, flip, masker), the forward and the
+optimizer run inside program spans (``tracing``: ``train_step/inputs``,
+``train_step/forward``, ``train_step/optimizer``), which ``profile_train``
+and the benchmark's trace read while the recorder is on; the backward runs
+on autograd's own thread.
 
 Over a data-parallel group (``mesh``, ``parallel.mesh``) each rank holds its
 block of the global batch, and the step computes what the JAX step computes
@@ -58,8 +60,8 @@ from typing import Callable
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from .. import tracing
 from ..ops.q8_transport import dequant_batch, is_encoded_batch
 from ..parallel import mesh as pmesh
 from ..utils import full_f32
@@ -253,7 +255,7 @@ def make_train_step(
 
     def loss_and_grads(state: TrainState, x: dict, y: torch.Tensor):
         leaves = list(state.params.values())
-        with record_function('train_step/forward'):
+        with tracing.span('train_step/forward'):
             if low:
                 cast = {n: p.to(compute_dtype) for n, p in state.params.items()}
                 xin = _model_input({k: v.to(compute_dtype) for k, v in x.items()}, family)
@@ -273,24 +275,25 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, seed: int):
         x, y = batch
-        if is_encoded_batch(x):
-            # Decode before the augmentations: mu-law is odd-symmetric, so
-            # flipping the decode equals flipping before the encode.
-            x = dequant_batch(x)
-        dev = y.device
-        seed_flip, seed_mask, seed_drop = step_seeds(seed, state.step)
-        rows = pmesh.batch_rows(mesh, int(y.shape[0])) if group else None
-        if flip_polarity:
-            x = invert_signals(_generator(dev, seed_flip), x, rows)
-        if masker is not None:
-            x = masker(_generator(dev, seed_mask), x, rows)
+        with tracing.span('train_step/inputs'):
+            if is_encoded_batch(x):
+                # Decode before the augmentations: mu-law is odd-symmetric, so
+                # flipping the decode equals flipping before the encode.
+                x = dequant_batch(x)
+            dev = y.device
+            seed_flip, seed_mask, seed_drop = step_seeds(seed, state.step)
+            rows = pmesh.batch_rows(mesh, int(y.shape[0])) if group else None
+            if flip_polarity:
+                x = invert_signals(_generator(dev, seed_flip), x, rows)
+            if masker is not None:
+                x = masker(_generator(dev, seed_mask), x, rows)
         if group and mesh.data_index:
             seed_drop = pmesh.seeded_int(seed_drop, mesh.data_index)
         model.train()
         with contextlib.nullcontext() if low else full_f32(), _seeded_dropout(dev, seed_drop), \
                 pmesh.active(mesh if group else None):
             loss, logits, grads = loss_and_grads(state, x, y)
-        with record_function('train_step/optimizer'), torch.no_grad():
+        with tracing.span('train_step/optimizer'), torch.no_grad():
             grad_norm = global_norm(grads)
             leaves = list(state.params.values())
             applied = opt.update(grads, state.opt_state, leaves)
