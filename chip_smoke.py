@@ -43,7 +43,8 @@ Phases (any failure raises, so the script exits non-zero):
    the longest row that follow from it.
 6. Model: the recorded goldens (tests/goldens) on the card; the flagship at
    full width (f32, 2 one-hour nights, seeded random weights) on the kernel
-   path against the plain path, 80 K1 launches per forward; the flagship bf16
+   path against the plain path, 80 K2 launches per forward (no backward
+   follows, so the fused chain takes its statistics from K2); the flagship bf16
    forward on 8 ten-hour nights with kernel statistics off and on (80 K1 and
    0 K2 launches, then 0 and 80), logits within twice the forward's own
    bf16-vs-f32 difference, times in the order off, on, on, off.
@@ -54,15 +55,16 @@ Phases (any failure raises, so the script exits non-zero):
    and Abdo at 32 Hz, one without Thor) written with the port's
    ``write_edf`` (set-up, not timed), served by ``StreamingPipeline(
    normalize='causal', precision='bfloat16', batch_size=8)`` with host decode
-   in the loop: 2 passes, then 1 pass in the kernel-statistics configuration,
-   then 1 untimed pass with ``normalize='zscore'``. Every hypnogram has 1,200
-   epochs in 0..3; the launch counts of K1, K2 and K3 are asserted.
+   in the loop: 2 passes (K2), then 1 pass with kernel statistics off (K1
+   and ``block_stats``), then 1 untimed pass with ``normalize='zscore'``.
+   Every hypnogram has 1,200 epochs in 0..3; the launch counts of K1, K2
+   and K3 are asserted.
 9. Serve CLI: a flagship checkpoint folder written with the port's
    ``save_checkpoint_folder`` (the seeded weights of phase 8, full width),
    loaded by ``load_model`` in bf16 and served over the q16, q4 and raw
    transports (``StreamingPipelineQ16`` / ``Q4`` / ``Raw``, batch 8) on
    phase 8's EDF nights, host extraction in the loop: a warm-up, then 2
-   timed passes each, with 80 K1 launches per batch and the native library
+   timed passes each, with 80 K2 launches per batch and the native library
    in use asserted; each transport's hypnograms against phase 8's z-score
    pass. Then one run of ``wav2sleep_tpu_torch.serve.main`` with the
    default transport (q16) and device (the card): 16 CSV files of 1,200
@@ -150,11 +152,11 @@ Phases (any failure raises, so the script exits non-zero):
    card, 4) over 4 of phase 8's ten-hour EDF nights (night 5 without Thor)
    from phase 9's checkpoint folder, f32 then bf16: every night 1,200
    epochs in 0..3, each CSV 1,200 rows stamped from the EDF start + 30 s +
-   30/1024 s (the cache's first grid point) holding the predictions, K1
-   launched in every forward and no K2 or K3; ``prepare`` seconds a night,
+   30/1024 s (the cache's first grid point) holding the predictions, K2
+   launched in every forward and no K1 or K3; ``prepare`` seconds a night,
    ``predict`` nights/hour and ``save_predictions`` seconds; agreement with
    phase 8's z-score hypnograms (report only). Then ``W2SModel.logits`` in
-   f32 on K1 against the same model with its convs plain, on the batch
+   f32 on K2 against the same model with its convs plain, on the batch
    ``predict`` forms: |d| <= 5e-4 (1 + |plain|). (b) ``python -m
    wav2sleep_tpu_torch.cli.predict``'s ``main`` with ``--no-preprocess``
    over phase 13's labeled val nights and its exported model: the kappa
@@ -197,14 +199,14 @@ Phases (any failure raises, so the script exits non-zero):
    NCCL ``all_reduce`` reached (calls counted). (c) ``StreamingPipelineQ16``
    in bf16 at batch 8 over ``devices=['cuda:0', 'cuda:0']`` (a replica
    each, 4 rows each) on phase 8's 16 EDF nights, 2 passes: the hypnograms
-   equal phase 9's one-replica q16 pass exactly, K1 80 times a replica
+   equal phase 9's one-replica q16 pass exactly, K2 80 times a replica
    forward, recordings/hour. (d) ``serve.main --data-parallel 1`` writes
    phase 9's CSV bytes; ``--data-parallel 2`` raises on a one-card machine.
    Prints a ``parallel`` JSON line. True multi-card runs and NCCL beyond
    world size 1 are not exercised.
 17. EOG: wav2sleep-eog at full width (``flagship_model(variant='eog')``:
    EOG-L/EOG-R at 4,096 samples an epoch, 10-block encoders, 5 classes).
-   (a) In f32 on two one-hour nights (one without EOG-R), K1 against the
+   (a) In f32 on two one-hour nights (one without EOG-R), K2 against the
    plain path within phase 6's 1e-3; in bf16 on 8 ten-hour nights, the K1
    path, the kernel-statistics path and the plain path, each within twice
    the forward's own bf16-vs-f32 difference, with K1 (K2) launched at every
@@ -217,7 +219,7 @@ Phases (any failure raises, so the script exits non-zero):
    bf16 forward. (b) 8 EOG EDF nights of 10 h at MESA's EOG rate
    (``data.synth.write_nights(kind='eog')``, 256 Hz, off the 136.53 Hz
    grid), an EOG checkpoint folder, ``load_model`` in bf16, 2 passes each
-   over q8 and q16: 1,200 epochs a night in 0..4, K1 58 a batch; then the
+   over q8 and q16: 1,200 epochs a night in 0..4, K2 58 a batch; then the
    serving CLI with q16 (its CSVs equal the q16 pass), q8 (equal to the q8
    pass) and f32. (c) The EOG training step, step 1 on K1 against the plain
    path under torch's default TF32 flags: bf16 at the drive's batch of 4
@@ -248,10 +250,10 @@ before it runs. The ``train``, ``families``, ``trainer``, ``api``, ``ingest``,
 line before the last is a JSON object describing the kernels (K1's and K2's
 entries also carry ``train_launches``, per training step, K1's
 ``trainer_launches`` and ``ingest_launches``, per training micro-step of
-phases 13 and 15, ``api_launches``, phase 14's f32 ``predict_on_folder``
-run, ``eog_launches``, per bf16 EOG forward of phase 17, and
-``drive_launches``, phase 18's fit with its eval and test passes, and
-their bf16 kernel's SASS counts (``sass_hgmma``, ``sass_utmaldg``,
+phases 13 and 15, and ``drive_launches``, K1's and K2's in phase 18's fit
+with its eval and test passes, K2's ``api_launches``, phase 14's f32
+``predict_on_folder`` run, and ``eog_launches``, per bf16 EOG serving
+forward of phase 17, and their bf16 kernel's SASS counts (``sass_hgmma``, ``sass_utmaldg``,
 ``sass_utmastg``) and ptxas ``registers`` and ``spill_bytes``; K3's
 ``causal_flagship_launches``, phase 12 (b)'s); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -346,7 +348,8 @@ def conv_bound(B, T, ci, co, stride, dtype_name, fused: bool, stats: bool) -> tu
 
 
 def counts(k1, k3) -> dict:
-    return {'K1': k1.LAUNCHES, 'K2': k1.STATS_LAUNCHES, 'K3': k3.LAUNCHES}
+    """Launches of K1, K2 and K3 (``conv_k3.LAUNCHES`` counts K1's and K2's)."""
+    return {'K1': k1.LAUNCHES - k1.STATS_LAUNCHES, 'K2': k1.STATS_LAUNCHES, 'K3': k3.LAUNCHES}
 
 
 def zero_counts(k1, k3) -> None:
@@ -555,7 +558,10 @@ def phase_forward_convs(torch, F, k1, layers, wav2sleep, variant='cardio'):
     flagship forward of ``variant`` (8 ten-hour nights), each call timed on
     the inputs the forward gives it, beside the sum of the calls' bounds.
     Returns the sums: calls, bytes, FLOPs, bound ms, and K1, K2 and
-    ``F.conv1d`` ms (one call, back to back)."""
+    ``F.conv1d`` ms (one call, back to back). The forward runs with kernel
+    statistics off, so that every k3 conv goes through ``conv_k3``."""
+    from wav2sleep_tpu_torch.ops import block_domain as bd
+
     model = wav2sleep.flagship_model(variant=variant, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
     n_calls = sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D))
     g = torch.Generator(device='cuda').manual_seed(4)
@@ -579,7 +585,8 @@ def phase_forward_convs(torch, F, k1, layers, wav2sleep, variant='cardio'):
 
     layers.conv_k3 = timed_conv
     try:
-        model(xb)
+        with kernel_stats(bd, False):
+            model(xb)
     finally:
         layers.conv_k3 = k1.conv_k3
     if tot['calls'] != n_calls:
@@ -707,8 +714,8 @@ def phase_model(torch, k1, k3, bd, layers, wav2sleep):
     err = float((kern - plain).abs().max())
     log(f'flagship f32 B=2 S={S}: logits {tuple(kern.shape)}, kernel vs plain max|d|={err:.3e} '
         f'(atol=rtol={MODEL_TOL:g}); launches per forward {launches} (plain path: {plain_launches})')
-    if launches['K1'] != 80 or plain_launches['K1'] != 0 or launches['K2'] != 0:
-        raise AssertionError(f'launches per forward {launches} (plain {plain_launches}), expected 80 K1 (0)')
+    if launches != {'K1': 0, 'K2': 80, 'K3': 0} or plain_launches['K1'] or plain_launches['K2']:
+        raise AssertionError(f'launches per forward {launches} (plain {plain_launches}), expected 80 K2 (0)')
     if kern.shape != (2, S, 4) or not bool(torch.isfinite(kern).all()):
         raise AssertionError('flagship logits have the wrong shape or are not finite')
     torch.testing.assert_close(kern, plain, atol=MODEL_TOL, rtol=MODEL_TOL)
@@ -824,8 +831,8 @@ def phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card):
     launches = counts(k1, k3)
     check_hypnograms(out, names, nights.n_epochs, 'serve q8')
     batches = passes * -(-NIGHTS // BATCH)
-    if launches != {'K1': 80 * batches, 'K2': 0, 'K3': 0}:
-        raise AssertionError(f'serve q8: launches {launches}, expected {80 * batches} K1')
+    if launches != {'K1': 0, 'K2': 80 * batches, 'K3': 0}:
+        raise AssertionError(f'serve q8: launches {launches}, expected {80 * batches} K2')
     total = sum(walls)
     log(f'serve q8 bf16 batch {BATCH}: {passes} passes of {NIGHTS} nights x {HOURS:g} h in '
         f'{", ".join(f"{w:.3f}" for w in walls)} s: {passes * NIGHTS} nights in {total:.3f} s, '
@@ -841,7 +848,7 @@ def phase_serve_q8(torch, k1, k3, layers, wav2sleep, pipeline, card):
     for path in ('kernel', 'plain', 'plain', 'kernel'):
         with plain_convs(layers, k1) if path == 'plain' else contextlib.nullcontext():
             times[path].append(cuda_ms(lambda: pipe._launch(slot), reps=5, warmup=1))
-    log(f'forward q8 bf16 B={BATCH} x {HOURS:g} h from pinned codes: K1 path '
+    log(f'forward q8 bf16 B={BATCH} x {HOURS:g} h from pinned codes: kernel path '
         f'{", ".join(f"{t:.2f}" for t in times["kernel"])} ms, plain path '
         f'{", ".join(f"{t:.2f}" for t in times["plain"])} ms (run kernel, plain, plain, kernel)')
 
@@ -871,9 +878,9 @@ def write_nights(folder: str, n_nights: int, hours: float, seed: int, absent: di
 
 def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps):
     """The f32 transport with causal normalization, host EDF decode in the
-    loop; returns the launch counts of its main path and of the
-    kernel-statistics configuration, and the hypnograms of the z-score
-    pass."""
+    loop; returns the launch counts of its main path (K2) and of the same
+    path with its statistics from ``block_stats`` (K1), and the hypnograms
+    of the z-score pass."""
     n_epochs = int(round(HOURS * 120))
     model = wav2sleep.flagship_model(generator=torch.Generator().manual_seed(0))
     pipe = pipeline.StreamingPipeline(
@@ -890,7 +897,7 @@ def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps):
     walls, out = timed_passes(torch, pipe, fps, passes)
     main = counts(k1, k3)
     check_hypnograms(out, fps, n_epochs, 'serve f32')
-    if main != {'K1': 80 * passes * batches, 'K2': 0, 'K3': passes * batches}:
+    if main != {'K1': 0, 'K2': 80 * passes * batches, 'K3': passes * batches}:
         raise AssertionError(f'serve f32: launches {main}')
     total = sum(walls)
     log(f'serve f32 causal bf16 batch {BATCH}: {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
@@ -899,18 +906,18 @@ def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps):
         f'{pipe.fill_seconds:.3f} s ({100 * pipe.fill_seconds / total:.1f}% of the wall); launches {main}; '
         f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
 
-    with kernel_stats(bd, True):
+    with kernel_stats(bd, False):
         pipe.fill_seconds = 0.0
         zero_counts(k1, k3)
         walls_s, out_s = timed_passes(torch, pipe, fps, 1)
-        stats = counts(k1, k3)
-    check_hypnograms(out_s, fps, n_epochs, 'serve f32, kernel statistics')
-    if stats != {'K1': 0, 'K2': 80 * batches, 'K3': batches}:
-        raise AssertionError(f'serve f32, kernel statistics: launches {stats}')
+        off = counts(k1, k3)
+    check_hypnograms(out_s, fps, n_epochs, 'serve f32, kernel statistics off')
+    if off != {'K1': 80 * batches, 'K2': 0, 'K3': batches}:
+        raise AssertionError(f'serve f32, kernel statistics off: launches {off}')
     agree = np.mean(np.concatenate([a == b for (_, a), (_, b) in zip(out, out_s)]))
-    log(f'serve f32 causal, kernel statistics on: 1 pass in {walls_s[0]:.3f} s '
-        f'({3600 * NIGHTS / walls_s[0]:.0f} recordings/hour); launches {stats}; epochs agreeing with '
-        f'the statistics-off pass {agree:.5f}')
+    log(f'serve f32 causal, kernel statistics off (K1 + block_stats): 1 pass in {walls_s[0]:.3f} s '
+        f'({3600 * NIGHTS / walls_s[0]:.0f} recordings/hour); launches {off}; epochs agreeing with '
+        f'the main path\'s {agree:.5f}')
 
     zpipe = pipeline.StreamingPipeline(
         model, list(SIGNALS), batch_size=BATCH, max_length_hours=HOURS, precision='bfloat16',
@@ -920,7 +927,7 @@ def phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps):
     out_z = list(zpipe.run(fps))
     check_hypnograms(out_z, fps, n_epochs, 'serve f32 zscore')
     log(f'serve f32 zscore: 1 untimed pass, {len(out_z)} valid hypnograms; launches {counts(k1, k3)}')
-    return main, stats, out_z
+    return main, off, out_z
 
 
 def q4_witness(torch, pipeline, fps, card):
@@ -1029,8 +1036,8 @@ def phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work):
         walls, out = timed_passes(torch, pipe, fps, passes)
         launches[name] = counts(k1, k3)
         check_hypnograms(out, fps, n_epochs, f'serve {name}')
-        if launches[name] != {'K1': 80 * passes * batches, 'K2': 0, 'K3': 0}:
-            raise AssertionError(f'serve {name}: launches {launches[name]}, expected {80 * passes * batches} K1')
+        if launches[name] != {'K1': 0, 'K2': 80 * passes * batches, 'K3': 0}:
+            raise AssertionError(f'serve {name}: launches {launches[name]}, expected {80 * passes * batches} K2')
         agree = np.mean(np.concatenate([hyp == zscore[fp] for fp, hyp in out]))
         total = sum(walls)
         log(f'serve {name} bf16 batch {BATCH} (load_model): {passes} passes of {NIGHTS} EDF nights x {HOURS:g} h in '
@@ -1555,7 +1562,7 @@ def phase_families(torch, k1, k3, wav2sleep, pipeline, train_bench, card, fps, w
     out['ppgnet'].update(bf16_max_abs_diff=err, bf16_scale=scale, bf16_argmax_agreement=agree)
     if floats != {torch.bfloat16} or got.shape != (PPGNET_SERVE_BATCH, n_epochs, 4) \
             or not bool(torch.isfinite(got).all()) or int(preds.min()) < 0 or int(preds.max()) > 3 \
-            or not err <= FAMILY_BF16_TOL * scale or bf16_launches['K1'] != 0:
+            or not err <= FAMILY_BF16_TOL * scale or bf16_launches['K1'] or bf16_launches['K2']:
         raise AssertionError(f'families (a): the bf16 checkpoint forward failed its checks ({floats}, {err})')
     del loaded, got, want, x, y
     torch.cuda.empty_cache()
@@ -1783,7 +1790,7 @@ def phase_trainer(torch, k1, k3, card, work, tf32_defaults):
                                  f'micro-steps (16 train nights, batch {TRAINER_BATCH}; the .issues night skipped)')
         k1_per_micro_step = epochs[0]['k1'] // epochs[0]['micro_steps']
         log(f'trainer: 2 epochs through main() in {fit_s:.1f} s (test set included); K1 {k1_per_micro_step} launches '
-            f'a training micro-step (forward and remat recompute), {fit_launches["K1"] - sum(e["k1"] for e in epochs)} in '
+            f'a training micro-step (forward and remat recompute), {fit_launches["K2"]} K2 in '
             f'the eval and test passes; peak device memory {fit_peak:.2f} GiB; final {final}')
 
         # (c) Resume from last for exactly one more epoch.
@@ -1931,7 +1938,7 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
     inp = _linked(os.path.join(work, 'api_in'), nights)
     ckpt, cache = os.path.join(work, 'checkpoint'), os.path.join(work, 'api_cache')
     line = dict(card=card, nights=len(nights), hours=HOURS, batch=API_BATCH)
-    k1_api = None
+    k2_api = None
     for precision in ('float32', 'bfloat16'):
         out = os.path.join(work, f'api_preds_{precision}')
         with timed_calls(api, ('prepare', 'predict', 'save_predictions')) as seconds:
@@ -1946,7 +1953,7 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
         if labels is not None or [p.shape for p in preds] != [(n_epochs,)] * len(nights) or \
                 min(p.min() for p in preds) < 0 or max(p.max() for p in preds) > 3:
             raise AssertionError(f'api {precision}: bad predictions {[(p.shape, p.min(), p.max()) for p in preds]}')
-        if launches['K1'] <= 0 or launches['K1'] % forwards or launches['K2'] or launches['K3']:
+        if launches['K2'] <= 0 or launches['K2'] % forwards or launches['K1'] or launches['K3']:
             raise AssertionError(f'api {precision}: launches {launches} over {forwards} forwards')
         for fp, pred in zip(nights, preds):
             rel = os.path.relpath(os.path.join(inp, os.path.basename(fp)), os.sep)
@@ -1960,19 +1967,19 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
         line[precision] = dict(
             wall_s=wall, prepare_s_per_night=seconds['prepare'] / len(nights), predict_s=seconds['predict'],
             predict_forwards=forwards, save_predictions_s=seconds['save_predictions'],
-            k1_launches=launches['K1'], k1_launches_per_forward=launches['K1'] // forwards,
+            k2_launches=launches['K2'], k2_launches_per_forward=launches['K2'] // forwards,
             agree_with_phase8_zscore=agree,
         )
         if precision == 'float32':
-            k1_api = launches['K1']
+            k2_api = launches['K2']
         log(f'api predict_on_folder {precision}: {len(nights)} EDF nights x {HOURS:g} h in {wall:.2f} s; prepare '
             f'{seconds["prepare"] / len(nights):.2f} s a night, predict {seconds["predict"]:.3f} s '
             f'({forwards} B={API_BATCH} forward, parquet read included), save_predictions '
-            f'{seconds["save_predictions"]:.3f} s; K1 {launches["K1"] // forwards} launches a forward; '
+            f'{seconds["save_predictions"]:.3f} s; K2 {launches["K2"] // forwards} launches a forward; '
             f'{len(nights)} CSV files of {n_epochs} rows from the EDF start + 30 s + 30/1024 s; epochs agreeing '
             f'with phase 8\'s z-score hypnograms {agree:.5f} (report only) on {card}')
 
-    # The f32 API forward on K1 against the same module with its convs
+    # The f32 API forward on K2 against the same module with its convs
     # plain, on the batch predict formed.
     model = api.W2SModel.load(ckpt)
     signals = model.valid_signals
@@ -1984,9 +1991,9 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
         want = model.logits(x)
     err = float(np.max(np.abs(got - want) / (1 + np.abs(want))))
     if not np.isfinite(got).all() or err > API_TOL:
-        raise AssertionError(f'api: f32 logits on K1 vs plain, max |d| / (1 + |plain|) {err:.3e} > {API_TOL}')
+        raise AssertionError(f'api: f32 logits on K2 vs plain, max |d| / (1 + |plain|) {err:.3e} > {API_TOL}')
     line['f32_logits_vs_plain'] = err
-    log(f'api: f32 W2SModel.logits on K1 vs the plain path, B={len(ds)} x {HOURS:g} h: max |d| / (1 + |plain|) '
+    log(f'api: f32 W2SModel.logits on K2 vs the plain path, B={len(ds)} x {HOURS:g} h: max |d| / (1 + |plain|) '
         f'{err:.3e} (gate {API_TOL})')
     del model, x
 
@@ -2008,7 +2015,7 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
         predict_s = time.perf_counter() - t0
         launches = counts(k1, k3)
         if len(preds) != len(fps) or any(p.shape != (n_epochs,) for p in preds) or \
-                launches['K1'] != forwards * line[precision]['k1_launches_per_forward']:
+                launches['K2'] != forwards * line[precision]['k2_launches_per_forward']:
             raise AssertionError(f'api predict {precision} over {len(fps)} nights: {len(preds)} results, {launches}')
         line[precision]['folder'] = dict(nights=len(ds), forwards=forwards, predict_s=predict_s,
                                          s_per_forward=predict_s / forwards, nights_per_hour=3600 * len(ds) / predict_s)
@@ -2034,19 +2041,19 @@ def phase_api(torch, k1, k3, layers, card, fps, out_z, work):
     kappa = re.search(r"^Cohen's kappa: (-?[0-9.]+|nan)$", text, re.M)
     acc = re.search(r'^Accuracy: ([0-9.]+|nan)$', text, re.M)
     csvs = sorted(os.listdir(out))  # without preprocessing, relative to the input folder
-    if not (kappa and acc) or len(csvs) != len(os.listdir(val)) or cli_launches['K1'] <= 0:
+    if not (kappa and acc) or len(csvs) != len(os.listdir(val)) or cli_launches['K2'] <= 0:
         raise AssertionError(f'api cli: printed {text!r}, wrote {csvs}, launches {cli_launches}')
     for name in csvs:
         rows = _read_csv_rows(os.path.join(out, name))
         if rows[0] != ['Timestamp', 'Pred', 'Stage'] or len(rows) != 1 + n_epochs or rows[1][0] != '30.0':
             raise AssertionError(f'api cli: {name} starts {rows[:2]} with {len(rows) - 1} rows')
     line['cli'] = dict(nights=len(csvs), wall_s=cli_s, kappa=float(kappa.group(1)), accuracy=float(acc.group(1)),
-                       k1_launches=cli_launches['K1'])
+                       k2_launches=cli_launches['K2'])
     log(f'api cli: python -m wav2sleep_tpu_torch.cli.predict --no-preprocess over {len(csvs)} labeled val nights '
-        f'in {cli_s:.1f} s (model load included): {text.strip()!r}; CSVs with Stage; K1 {cli_launches["K1"]} launches')
+        f'in {cli_s:.1f} s (model load included): {text.strip()!r}; CSVs with Stage; K2 {cli_launches["K2"]} launches')
     line['phase_s'] = time.time() - t_phase
     log(f'api: phase 14 took {line["phase_s"]:.1f} s')
-    return line, k1_api
+    return line, k2_api
 
 
 # Phase 15: the corpus path. MESA sessions from the port's split lists
@@ -2476,8 +2483,8 @@ def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
     walls, out = timed_passes(torch, pipe, fps, passes)
     served = counts(k1, k3)
     check_hypnograms(out, fps, n_epochs, 'parallel (c)')
-    if served != {'K1': 80 * PARALLEL_RANKS * passes * batches, 'K2': 0, 'K3': 0}:
-        raise AssertionError(f'parallel (c): launches {served}, expected 80 K1 a replica forward')
+    if served != {'K1': 0, 'K2': 80 * PARALLEL_RANKS * passes * batches, 'K3': 0}:
+        raise AssertionError(f'parallel (c): launches {served}, expected 80 K2 a replica forward')
     differ = {os.path.basename(fp): int((hyp != same_shapes[fp]).sum()) for fp, hyp in out
               if not np.array_equal(hyp, same_shapes[fp])}
     agree_b8 = float(np.mean(np.concatenate([hyp == q16_hyps[fp] for fp, hyp in out])))
@@ -2485,7 +2492,7 @@ def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
     rate = 3600 * passes * NIGHTS / sum(walls)
     log(f'parallel (c): StreamingPipelineQ16 bf16 batch {BATCH} over {PARALLEL_RANKS} replicas on cuda:0 ({half} rows '
         f'each): {passes} passes of {NIGHTS} EDF nights in {", ".join(f"{w:.3f}" for w in walls)} s, {rate:.0f} '
-        f'recordings/hour on {card}; launches {served} (80 K1 a replica forward); epochs differing from one replica at '
+        f'recordings/hour on {card}; launches {served} (80 K2 a replica forward); epochs differing from one replica at '
         f'batch {half}: {differ or 0}; epochs equal to phase 9\'s one replica at batch {BATCH}: {agree_b8:.5f}, and '
         f'one replica at batch {half} against it {agree_b4:.5f} (the forward\'s bf16 rounding depends on the batch)')
     if differ:
@@ -2523,7 +2530,7 @@ def phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps):
                    loss=[s['loss'] for s in r0['steps']], grad_norm=[s['grad_norm'] for s in r0['steps']]),
         nccl=dict(world_size=1, seconds=nccl_s, all_reduce_calls=int(reduced.group(1)), losses=len(losses)),
         serve=dict(replicas=PARALLEL_RANKS, batch=BATCH, walls_s=walls, recordings_per_hour=rate,
-                   k1_launches_per_replica_forward=80, equal_to_one_replica_at_batch=half,
+                   k2_launches_per_replica_forward=80, equal_to_one_replica_at_batch=half,
                    agree_with_one_replica_at_batch_8=agree_b8, one_replica_batch_4_agree_with_batch_8=agree_b4),
         cli=dict(data_parallel_1_bytes_equal=True, seconds=cli_s, data_parallel_2=refused),
         phase_s=time.time() - t_phase,
@@ -2564,8 +2571,8 @@ def phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, ca
     forward's convs; (b) EOG EDF nights served over q8 and q16 from a
     checkpoint folder and through the serving CLI; (c) the training step in
     bf16 over q8 (the drive's batch) and in f32 (the config's batch), step 1
-    on K1 against the plain path. Returns the ``eog`` line and K1's launches
-    per forward."""
+    on K1 against the plain path. Returns the ``eog`` line and K2's launches
+    per serving forward."""
     from wav2sleep_tpu_torch import api, checkpoint, serve
     from wav2sleep_tpu_torch.data import synth
     from wav2sleep_tpu_torch.instantiate import target_config
@@ -2593,7 +2600,7 @@ def phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, ca
     err = float((kern - plain).abs().max())
     log(f'eog f32 B=2 S=120: logits {tuple(kern.shape)}, kernel vs plain max|d|={err:.3e} (atol=rtol={MODEL_TOL:g}); '
         f'launches {f32_launches}')
-    if f32_launches != {'K1': n_k1, 'K2': 0, 'K3': 0} or kern.shape != (2, 120, EOG_CLASSES):
+    if f32_launches != {'K1': 0, 'K2': n_k1, 'K3': 0} or kern.shape != (2, 120, EOG_CLASSES):
         raise AssertionError(f'eog f32: launches {f32_launches}, logits {tuple(kern.shape)}')
     torch.testing.assert_close(kern, plain, atol=MODEL_TOL, rtol=MODEL_TOL)
     del kern, plain, x
@@ -2623,7 +2630,7 @@ def phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, ca
     log(f'eog bf16 B={BATCH} x {HOURS:g} h: logits {tuple(out["kernel"].shape)}; kernel vs plain max|d|={d_plain:.3e}, '
         f'kernel statistics on vs off {d_stats:.3e} (bound 2 x the forward\'s bf16-vs-f32 difference {d_bf16:.3e}); '
         f'argmax agreement with plain {agree:.5f}; launches {seen}; peak device memory {fwd_peak:.2f} GiB; forward ms '
-        f'K1 path {", ".join(f"{t:.2f}" for t in times["kernel"])}, plain path '
+        f'kernel path {", ".join(f"{t:.2f}" for t in times["kernel"])}, plain path '
         f'{", ".join(f"{t:.2f}" for t in times["plain"])} (run kernel, plain, plain, kernel)')
     if seen != {'kernel': {'K1': n_k1, 'K2': 0, 'K3': 0}, 'stats': {'K1': 0, 'K2': n_k1, 'K3': 0},
                 'plain': {'K1': 0, 'K2': 0, 'K3': 0}}:
@@ -2671,8 +2678,8 @@ def phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, ca
         launches = counts(k1, k3)
         check_hypnograms(got, fps, S, f'eog serve {name}', n_classes=EOG_CLASSES)
         batches = 2 * -(-EOG_NIGHTS // BATCH)
-        if launches != {'K1': n_k1 * batches, 'K2': 0, 'K3': 0}:
-            raise AssertionError(f'eog serve {name}: launches {launches}, expected {n_k1 * batches} K1')
+        if launches != {'K1': 0, 'K2': n_k1 * batches, 'K3': 0}:
+            raise AssertionError(f'eog serve {name}: launches {launches}, expected {n_k1 * batches} K2')
         total = sum(walls)
         serve_line[name] = dict(walls_s=walls, recordings_per_hour=3600 * 2 * EOG_NIGHTS / total,
                                 fill_s=pipe.fill_seconds, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -2769,7 +2776,8 @@ DRIVE_CUTS = {
 }
 DRIVE_TEST_TOL = 1e-4  # the test pass's loss, the CLI's process against this one's (f32 eval, TF32 off)
 DRIVE_MARGIN = 1e-3  # near-ties: epochs whose top-two logits are closer are not compared
-# The train CLI with K1's launches counted and printed when the process ends.
+# The train CLI with the k3 conv kernel's launches (K1's and K2's) counted
+# and printed when the process ends.
 K1_RUNNER = '''
 import atexit, runpy, sys
 from wav2sleep_tpu_torch.ops import conv_k3
@@ -2825,7 +2833,8 @@ def phase_drive(torch, k1, card, work):
         raise AssertionError('drive: the best checkpoint was not restored before the test pass')
     micro_steps = train_rows[-1]['lr_step']
     if not launches >= 160 * micro_steps:
-        raise AssertionError(f'drive: K1 launched {launches} times over {micro_steps} training micro-steps (160 each)')
+        raise AssertionError(f'drive: K1 and K2 launched {launches} times over {micro_steps} training micro-steps '
+                             f'(K1 160 each)')
 
     # The test pass ran on the best weights: this process's test pass from
     # checkpoints/best gives the CLI's test loss, and the trainer's
@@ -2869,7 +2878,7 @@ def phase_drive(torch, k1, card, work):
         f'plateau LR cut {ev["plateau_lr_reduced"]} at {ev["lr_reduction_epochs"]}, best epoch {ev["best_epoch"]}, best '
         f'is last {ev["best_is_last"]}); val_loss {[round(r["val_loss"], 4) for r in val_rows]}; q16 shadow agrees '
         f'{ev["eval_transport_ab"]["selection_agrees"]} (max |d| {ev["eval_transport_ab"]["max_abs_val_loss_delta"]}); '
-        f'K1 {launches} launches over {micro_steps} micro-steps and the eval passes; test pass from best here vs the '
+        f'K1 and K2 {launches} launches over {micro_steps} micro-steps and the eval passes; test pass from best here vs the '
         f'CLI\'s: max relative |d| {d_test:.2e} (bound {DRIVE_TEST_TOL:g}); trainer predictions vs the export\'s '
         f'predict_on_folder CSVs on {int(clear.sum())} of {clear.size} epochs off near-ties: equal {same}; '
         f'exported model on the test nights: accuracy {summary["exported_checkpoint_test"]["accuracy"]}, kappa '
@@ -2953,7 +2962,7 @@ def main() -> int:
         fps = write_nights(nights, NIGHTS, HOURS, seed=10, absent={5: ('Thor',)})
         log(f'serve: wrote {NIGHTS} EDF nights of {HOURS:g} h ({sum(os.path.getsize(f) for f in fps) / 2**20:.0f} MiB) '
             f'with write_edf in {time.time() - t0:.1f} s (set-up)')
-        main_counts, stats_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
+        main_counts, off_counts, out_z = phase_serve_f32(torch, k1, k3, bd, wav2sleep, pipeline, card, fps)
         _, q16_hyps = phase_serve_cli(torch, k1, k3, wav2sleep, pipeline, card, fps, out_z, work)
         with torch.inference_mode():
             variant_lines = phase_variants(torch, F, k1, cv, cuda_build, profile_variants)
@@ -2963,13 +2972,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         trainer_line, k1_trainer = phase_trainer(torch, k1, k3, card, work, tf32_defaults)
         torch.cuda.empty_cache()
-        api_line, k1_api = phase_api(torch, k1, k3, layers, card, fps, out_z, work)
+        api_line, k2_api = phase_api(torch, k1, k3, layers, card, fps, out_z, work)
         torch.cuda.empty_cache()
         ingest_line, k1_ingest = phase_ingest(torch, k1, k3, card, work)
         torch.cuda.empty_cache()
         parallel_line = phase_parallel(torch, k1, k3, pipeline, card, fps, work, q16_hyps)
         torch.cuda.empty_cache()
-        eog_line, k1_eog, _ = phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, card, work,
+        eog_line, k2_eog, _ = phase_eog(torch, F, k1, k3, bd, layers, wav2sleep, pipeline, train_bench, card, work,
                                         tf32_defaults)
         torch.cuda.empty_cache()
         drive_line, k1_drive = phase_drive(torch, k1, card, work)
@@ -2977,25 +2986,27 @@ def main() -> int:
     source = 'wav2sleep_tpu_torch/csrc/'
     kernels = [
         # K1 line: bf16, identity phi, 16->16 s1, B=8, T=1,228,800;
-        # launches: the f32 causal serving path; train_launches: per
-        # training step of phase 11 (a) (forward and recompute);
-        # trainer_launches: per training micro-step of phase 13's main();
-        # api_launches: phase 14's f32 predict_on_folder run;
-        # ingest_launches: per training micro-step of phase 15's main();
-        # eog_launches: per bf16 wav2sleep-eog forward of phase 17 (a);
-        # drive_launches: phase 18's reduced drive, its fit, eval and test;
-        # the SASS counts and ptxas registers of the kernel the call runs.
+        # launches: the f32 causal serving path with kernel statistics off;
+        # train_launches: per training step of phase 11 (a) (forward and
+        # recompute); trainer_launches: per training micro-step of phase
+        # 13's main(); ingest_launches: per training micro-step of phase
+        # 15's main(); drive_launches: phase 18's reduced drive, K1's and
+        # K2's launches in its fit, eval and test; the SASS counts and
+        # ptxas registers of the kernel the call runs.
         dict(name='conv_k3', route='cuda', source=source + 'conv_k3.cu',
-             replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=main_counts['K1'],
-             train_launches=k1_train, trainer_launches=k1_trainer, api_launches=k1_api,
-             ingest_launches=k1_ingest, eog_launches=k1_eog, drive_launches=k1_drive, max_abs_err=k1_err,
+             replaces='wav2sleep_tpu/ops/pallas_conv.py:136', launches=off_counts['K1'],
+             train_launches=k1_train, trainer_launches=k1_trainer,
+             ingest_launches=k1_ingest, drive_launches=k1_drive, max_abs_err=k1_err,
              **k1_line, **k1_evidence['conv_k3']),
         # K2 line: bf16, norm+gelu phi, 16->16 s1, B=8, T=1,228,800;
-        # launches: the same path in the kernel-statistics configuration;
-        # train_launches: per training step of phase 11 (c).
+        # launches: the f32 causal serving path; train_launches: per
+        # training step of phase 11 (c), kernel statistics forced on;
+        # api_launches: phase 14's f32 predict_on_folder run; eog_launches:
+        # per bf16 wav2sleep-eog forward of phase 17 (a).
         dict(name='conv_k3_stats', route='cuda', source=source + 'conv_k3.cu',
-             replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=stats_counts['K2'],
-             train_launches=k2_train, max_abs_err=k2_err, **k2_line, **k1_evidence['conv_k3_stats']),
+             replaces='wav2sleep_tpu/ops/pallas_conv.py:184', launches=main_counts['K2'],
+             train_launches=k2_train, api_launches=k2_api, eog_launches=k2_eog, max_abs_err=k2_err,
+             **k2_line, **k1_evidence['conv_k3_stats']),
         # K3 line: the first 65,536 samples of one serving batch's 32 rows;
         # causal_flagship_launches: phase 12 (b)'s pass.
         dict(name='ema_norm', route='cuda', source=source + 'ema_norm.cu',

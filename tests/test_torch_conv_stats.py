@@ -4,9 +4,12 @@ instance-norm statistics with phi as the identity (``sd_conv_blocks_stats``)
 and as fused instance norm + gelu (``sd_conv_blocks_fused_stats``), at
 atol/rtol 2e-4; the port's ``ConvBlock1D`` in the kernel-statistics
 configuration against the JAX ``ConvBlock1D`` on its block path with
-in-kernel statistics, on the same weights; and the switch itself. On the
+in-kernel statistics, on the same weights; and the rule that picks where the
+fused chain takes its statistics from. On the
 CPU ``conv_k3_stats`` runs its plain version; the kernel is checked on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -99,9 +102,11 @@ def test_convblock_kernel_stats_matches_jax(jax_kernel_stats_path, monkeypatch, 
 
 
 def test_stats_configuration_is_the_same_function(monkeypatch):
-    """On the CPU the kernel-statistics chain computes what the default
-    chain computes, and the switch reads WAV2SLEEP_KERNEL_STATS only when the
-    module flag is None."""
+    """On the CPU the kernel-statistics chain computes what the K1 +
+    ``block_stats`` chain computes. With the module flag None the rule
+    decides per call: kernel statistics where autograd records nothing for
+    the call's tensors, and WAV2SLEEP_KERNEL_STATS forces them; the module
+    flag, when set, overrides both."""
     block = layers.ConvBlock1D(16, 32, norm_eps=EPS, use_kernel=True).eval()
     x = torch.from_numpy(np.random.default_rng(9).normal(size=(2, 512, 16)).astype(np.float32))
     with torch.no_grad():
@@ -110,11 +115,69 @@ def test_stats_configuration_is_the_same_function(monkeypatch):
         monkeypatch.setattr(tbd, 'KERNEL_STATS', True)
         on = block(x)
     torch.testing.assert_close(on, off, rtol=0, atol=0)
+    recorded = torch.ones(1, requires_grad=True)
     monkeypatch.setattr(tbd, 'KERNEL_STATS', None)
     monkeypatch.delenv('WAV2SLEEP_KERNEL_STATS', raising=False)
-    assert not tbd.kernel_stats_enabled()
+    assert tbd.kernel_stats_enabled()
+    assert tbd.kernel_stats_enabled(torch.ones(1), None)
+    assert not tbd.kernel_stats_enabled(torch.ones(1), recorded)
+    with torch.no_grad():
+        assert tbd.kernel_stats_enabled(recorded)
+    with torch.inference_mode():
+        assert tbd.kernel_stats_enabled(recorded)
     monkeypatch.setenv('WAV2SLEEP_KERNEL_STATS', '1')
     assert tbd.kernel_stats_enabled()
+    assert tbd.kernel_stats_enabled(recorded)
+    monkeypatch.setattr(tbd, 'KERNEL_STATS', False)
+    with torch.no_grad():
+        assert not tbd.kernel_stats_enabled(recorded)
+    monkeypatch.setattr(tbd, 'KERNEL_STATS', True)
+    assert tbd.kernel_stats_enabled(recorded)
+
+
+@pytest.mark.parametrize('cin', [1, 16])
+@pytest.mark.parametrize('recording', ['no_grad', 'frozen', 'grad'])
+@pytest.mark.parametrize('flag', [None, True, False])
+def test_fused_chain_takes_statistics_by_the_rule(monkeypatch, flag, recording, cin):
+    """Which path a fused block's kernel convs take: K2 (``conv_k3_stats``)
+    where the flag is True, or None and autograd records nothing (under
+    ``no_grad``, or with grad on over frozen parameters and an input that
+    needs none); K1 (``conv_k3``) and ``block_stats`` where the flag is
+    False, or None and a backward follows. The entry conv (C_in 1, no
+    kernel) takes ``block_stats`` on every path. The block's output is the
+    same on every path, to the bit."""
+    monkeypatch.delenv('WAV2SLEEP_KERNEL_STATS', raising=False)
+    block = layers.ConvBlock1D(cin, 32, norm_eps=EPS, use_kernel=True)
+    x = torch.from_numpy(np.random.default_rng(cin).normal(size=(2, 256, cin)).astype(np.float32))
+    monkeypatch.setattr(tbd, 'KERNEL_STATS', False)
+    with torch.no_grad():
+        want = block(x)
+    if recording == 'frozen':
+        block.requires_grad_(False)
+    calls = {'conv_k3': 0, 'conv_k3_stats': 0, 'block_stats': 0}
+
+    def spy(name):
+        fn = getattr(layers, name)
+
+        def counted(*args):
+            calls[name] += 1
+            return fn(*args)
+        monkeypatch.setattr(layers, name, counted)
+
+    for name in calls:
+        spy(name)
+    monkeypatch.setattr(tbd, 'KERNEL_STATS', flag)
+    with torch.no_grad() if recording == 'no_grad' else contextlib.nullcontext():
+        got = block(x)
+    k2 = flag is True or (flag is None and recording != 'grad')
+    n_kernel = 3 if cin >= 8 else 2
+    assert calls == {
+        'conv_k3': 0 if k2 else n_kernel,
+        'conv_k3_stats': n_kernel if k2 else 0,
+        'block_stats': 3 - n_kernel + (0 if k2 else n_kernel),
+    }
+    assert got.requires_grad == (recording == 'grad')
+    torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('stride', [1, 2])

@@ -159,13 +159,15 @@ def test_kernel_refuses_what_it_does_not_take(card):
 @pytest.mark.parametrize('B,T,ci,co,stride', CASES)
 def test_k2_matches_plain(card, B, T, ci, co, stride, dtype):
     """K2's y as K1's; its statistics equal block_stats over its own stored
-    y (rtol/atol 1e-5: the same values, reduced in another order)."""
+    y (rtol/atol 1e-5: the same values, reduced in another order). A K2
+    launch counts in LAUNCHES, as every launch of the k3 conv kernel does,
+    and in STATS_LAUNCHES."""
     x, w, b, mu, inv = _inputs(B, T, ci, co, card, seed=B * T + ci + co + stride + 1)
     x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
     for args in ((b, None, None, stride, None), (b, mu, inv, stride, 'gelu')):
         before = k1.STATS_LAUNCHES, k1.LAUNCHES
         y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, 1e-2)
-        assert (k1.STATS_LAUNCHES, k1.LAUNCHES) == (before[0] + 1, before[1])
+        assert (k1.STATS_LAUNCHES, k1.LAUNCHES) == (before[0] + 1, before[1] + 1)
         torch.testing.assert_close(y, k1.conv_k3(x, w, *args), rtol=0, atol=0)
         assert mu_k.shape == inv_k.shape == (B, co) and mu_k.dtype == torch.float32
         mu_r, inv_r = bd.block_stats(y, 1e-2)
@@ -335,6 +337,66 @@ def test_convblock_kernel_stats_on_the_card(card, monkeypatch):
         on = block(x)
     assert k1.STATS_LAUNCHES == before + 3
     torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+
+
+def _narrow_q8_batch(device, signals, B, hours, seed):
+    """Seeded mu-law codes of ``hours``-long nights and their q8 metadata,
+    on ``device``, in the argument order of ``make_streaming_forward_q8``."""
+    from wav2sleep_tpu_torch import pipeline
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = {c: torch.randint(-127, 128, (B, pipeline.grid_length(c, hours)), generator=g, device=device,
+                          dtype=torch.int8) for c in signals}
+    meta = [{c: torch.full((B,), v, device=device) for c in signals} for v in (1.0, 0.0, 1000.0)]  # a, b, vmax
+    meta += [{c: torch.full((B,), q[c].shape[1], dtype=torch.int32, device=device) for c in signals}] * 2
+    meta += [{c: torch.ones(B, dtype=torch.bool, device=device) for c in signals}]
+    return q, meta
+
+
+def test_serving_forward_takes_its_statistics_from_k2(card):
+    """A bf16 q8 serving forward runs under inference mode, so every one of
+    the 80 kernel-eligible convs runs K2: 80 more launches in both
+    STATS_LAUNCHES and LAUNCHES. In f32 its logits are those of the same
+    forward on K1 + block_stats within 5e-4 (the statistics' summation
+    order)."""
+    from wav2sleep_tpu_torch import pipeline
+    from wav2sleep_tpu_torch.models.wav2sleep import flagship_model
+
+    model = flagship_model(max_channels=32, feature_dim=32, device=card, generator=torch.Generator().manual_seed(4))
+    assert sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D)) == 80
+    q, meta = _narrow_q8_batch(card, ('ECG', 'PPG', 'ABD', 'THX'), 2, 0.25, seed=8)
+    before = k1.LAUNCHES, k1.STATS_LAUNCHES
+    hyp = pipeline.make_streaming_forward_q8(model, 'bfloat16')(q, *meta)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES - before[0], k1.STATS_LAUNCHES - before[1]) == (80, 80)
+    assert hyp.shape == (2, 30) and hyp.dtype == torch.int32
+    forward = pipeline.make_streaming_forward_q8(model, 'float32', output='logits')
+    on = forward(q, *meta)
+    with _kernel_stats(False):
+        before = k1.LAUNCHES, k1.STATS_LAUNCHES
+        off = forward(q, *meta)
+        torch.cuda.synchronize()
+        assert (k1.LAUNCHES - before[0], k1.STATS_LAUNCHES - before[1]) == (80, 0)
+    torch.testing.assert_close(on, off, atol=5e-4, rtol=5e-4)
+
+
+def test_grad_recording_forward_launches_no_k2(card):
+    """With grad on and parameters that require it, the fused chain keeps
+    K1 + block_stats (a backward follows): 80 launches, none of them K2;
+    the backward runs."""
+    from wav2sleep_tpu_torch.models.wav2sleep import flagship_model
+    from wav2sleep_tpu_torch.settings import COLS_TO_SAMPLES_PER_EPOCH
+
+    model = flagship_model(max_channels=32, feature_dim=32, device=card, generator=torch.Generator().manual_seed(4))
+    g = torch.Generator(device=card).manual_seed(9)
+    x = {c: torch.randn((2, 8 * COLS_TO_SAMPLES_PER_EPOCH[c]), device=card, generator=g)
+         for c in ('ECG', 'PPG', 'ABD', 'THX')}
+    before = k1.LAUNCHES, k1.STATS_LAUNCHES
+    logits = model(x)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES - before[0], k1.STATS_LAUNCHES - before[1]) == (80, 0)
+    logits.square().mean().backward()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None)
 
 
 def test_k3_matches_plain(card):
@@ -796,7 +858,8 @@ def _kernel_stats(on):
 @pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
 def test_train_step_launches_k1_twice_per_conv_with_remat(card, compute_dtype):
     """A forward launches K1 80 times; a step with remat 160 (the forward
-    and the recompute), without remat 80; with kernel statistics K2 160."""
+    and the recompute), without remat 80, and no K2: a backward follows;
+    with kernel statistics forced on K2 160 (LAUNCHES counts K2's too)."""
     batch = _train_batch(card)
     seen = {}
     for remat, stats in ((True, False), (False, False), (True, True)):
@@ -807,7 +870,7 @@ def test_train_step_launches_k1_twice_per_conv_with_remat(card, compute_dtype):
             torch.cuda.synchronize()
         seen[remat, stats] = (k1.LAUNCHES, k1.STATS_LAUNCHES)
         assert bool(torch.isfinite(m['loss'])) and bool(torch.isfinite(m['grad_norm']))
-    assert seen == {(True, False): (160, 0), (False, False): (80, 0), (True, True): (0, 160)}
+    assert seen == {(True, False): (160, 0), (False, False): (80, 0), (True, True): (160, 160)}
 
 
 def test_train_step_is_seeded_on_the_card(card):
@@ -1272,7 +1335,7 @@ def test_k1_and_k2_match_plain_at_eog_block_shapes(card, B, T, stride, dtype):
         assert _within(got, want, dtype)
         del want
         y, mu_k, inv_k = k1.conv_k3_stats(x, w, *args, 1e-2)
-        assert (k1.LAUNCHES, k1.STATS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert (k1.LAUNCHES, k1.STATS_LAUNCHES) == (before[0] + 2, before[1] + 1)  # K1's and K2's
         assert torch.equal(y, got)
         del got
         mu_r, inv_r = bd.block_stats(y, 1e-2)
@@ -1293,8 +1356,9 @@ def _eog_model(device, remat=False):
 
 def test_eog_forward_on_k1_matches_the_plain_path(card, monkeypatch):
     """The full-width wav2sleep-eog in f32 on two one-hour nights (one
-    without EOG-R): K1 at each of its 58 kernel-eligible convs, the logits
-    within 1e-3 of the same model with its convs plain."""
+    without EOG-R): K2 at each of its 58 kernel-eligible convs (no backward
+    follows), the logits within 1e-3 of the same model with its convs
+    plain."""
     model = _eog_model(card).eval()
     n_k1 = sum(m.kernel_eligible for m in model.modules() if isinstance(m, layers.Conv1D))
     assert n_k1 == 58  # 2 encoders x 10 blocks x 3 k3 convs, less the two C_in=1 entry convs
@@ -1302,10 +1366,11 @@ def test_eog_forward_on_k1_matches_the_plain_path(card, monkeypatch):
     x = {c: torch.randn((2, 4096 * 120), device=card, generator=g) for c in ('EOG-L', 'EOG-R')}
     x['EOG-R'][1] = -torch.inf
     with torch.inference_mode():
-        before = k1.LAUNCHES
+        before = k1.LAUNCHES, k1.STATS_LAUNCHES
         got = model(x)
-        assert k1.LAUNCHES - before == n_k1
+        assert (k1.LAUNCHES - before[0], k1.STATS_LAUNCHES - before[1]) == (n_k1, n_k1)
         monkeypatch.setattr(layers, 'conv_k3', k1.conv_k3_reference)
+        monkeypatch.setattr(layers, 'conv_k3_stats', k1.conv_k3_stats_reference)
         want = model(x)
     assert got.shape == (2, 120, 5) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)

@@ -1,6 +1,6 @@
 """The torch port's Wav2Sleep against the recorded goldens and against the
 JAX package on the same weights and inputs (f32 on the CPU, where every k3
-conv goes through ``conv_k3``'s plain version)."""
+conv goes through the plain versions of ``conv_k3`` and ``conv_k3_stats``)."""
 
 import json
 import os
@@ -116,26 +116,24 @@ def test_flagship_matches_jax_with_missing_modality_and_present_mask(narrow_flag
 
 
 def test_kernel_dispatch_covers_every_encoder_k3_conv(monkeypatch):
-    """The convs routed to K1 are exactly the encoders' k3 convs with C_in >= 8:
-    at full width 2 + 3 per later block, 23 for ECG/PPG and 17 for ABD/THX.
-    A forward calls ``conv_k3`` once for each of them."""
+    """The convs routed to the kernels are exactly the encoders' k3 convs
+    with C_in >= 8: at full width 2 + 3 per later block, 23 for ECG/PPG and
+    17 for ABD/THX. A forward that no backward follows calls
+    ``conv_k3_stats`` (K2) once for each of them, and ``conv_k3`` never."""
     model = flagship_model(device='cpu')
     per_encoder = {
         name: sum(m.kernel_eligible for m in enc.modules() if isinstance(m, layers.Conv1D))
         for name, enc in model.signal_encoders.encoders.items()
     }
     assert per_encoder == {'ABD': 17, 'THX': 17, 'ECG': 23, 'PPG': 23}
-    calls, conv_k3 = [], layers.conv_k3
-
-    def counting(*args):
-        calls.append(args[0].shape[-1])
-        return conv_k3(*args)
-
-    monkeypatch.setattr(layers, 'conv_k3', counting)
+    calls = {'conv_k3': [], 'conv_k3_stats': []}
+    for name, seen in calls.items():
+        fn = getattr(layers, name)
+        monkeypatch.setattr(layers, name, lambda *args, fn=fn, seen=seen: seen.append(args[0].shape[-1]) or fn(*args))
     x = {k: torch.randn(1, COLS_TO_SAMPLES_PER_EPOCH[k]) for k in ('ABD', 'THX', 'ECG', 'PPG')}
     with torch.no_grad():
         assert model(x).shape == (1, 1, 4)
-    assert len(calls) == 80 and min(calls) >= 8
+    assert len(calls['conv_k3_stats']) == 80 and min(calls['conv_k3_stats']) >= 8 and not calls['conv_k3']
 
 
 def test_state_dict_round_trip_is_exact(narrow_flagship):

@@ -123,11 +123,12 @@ def forward_convs(model, xb) -> dict:
         tot['calls'] += 1
         return k1.conv_k3(x, w, *args)
 
-    layers.conv_k3 = timed_conv
+    # Kernel statistics off: every k3 conv of the forward goes through conv_k3.
+    layers.conv_k3, bd.KERNEL_STATS = timed_conv, False
     try:
         model(xb)
     finally:
-        layers.conv_k3 = k1.conv_k3
+        layers.conv_k3, bd.KERNEL_STATS = k1.conv_k3, None
     return {'calls': tot['calls'], 'k1': tot['k1'].tolist(), 'k2': tot['k2'].tolist()}
 
 

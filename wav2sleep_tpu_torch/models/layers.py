@@ -16,11 +16,15 @@ C_out in {16, 32, 64, 128} runs through ``ops.conv_k3`` (K1) — the convs the
 JAX package runs through its Pallas kernel on the TPU. ``ConvBlock1D`` keeps
 the JAX package's fused chain: each conv's input read applies the previous
 conv's instance norm and activation, so the normalized maps are never
-written out. With kernel statistics on (``block_domain.kernel_stats_enabled``)
-those convs run K2 (``ops.conv_k3.conv_k3_stats``), which also returns the
-statistics of its output; ``block_stats`` then runs only for the convs
-without a kernel. The entry conv (C_in = 1) and the 1x1 stride-2 residual
-stay plain torch, as they are XLA (not Pallas) in the JAX package.
+written out. Where no backward follows a call (grad mode off, as in serving
+and evaluation, or nothing it reads requires grad) those convs run K2
+(``ops.conv_k3.conv_k3_stats``), which also returns the statistics of its
+output; ``block_stats`` then runs only for the convs without a kernel. Where
+a backward follows they run K1 and ``block_stats``. The rule, and its
+override ``block_domain.KERNEL_STATS``, are
+``block_domain.kernel_stats_enabled``. The entry conv (C_in = 1) and the 1x1
+stride-2 residual stay plain torch, as they are XLA (not Pallas) in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -129,12 +133,13 @@ class Conv1D(nn.Module):
 
     def forward_with_stats(self, x_NTC: torch.Tensor, eps: float, fused_in=None):
         """``(y, mu, inv)``: the conv's output and its instance-norm
-        statistics, from K2 where the conv has a kernel and kernel
-        statistics are on, else from ``block_stats`` over ``y``."""
-        if self.kernel_eligible and kernel_stats_enabled():
+        statistics, from K2 where the conv has a kernel and
+        ``kernel_stats_enabled`` holds for the call (by default: no
+        backward follows it), else from ``block_stats`` over ``y``."""
+        mu, inv, act = fused_in if fused_in is not None else (None, None, None)
+        if self.kernel_eligible and kernel_stats_enabled(x_NTC, self.weight, self.bias, mu, inv):
             w = self.weight.to(x_NTC.dtype).permute(2, 1, 0).contiguous()
             b = None if self.bias is None else self.bias.to(x_NTC.dtype)
-            mu, inv, act = fused_in if fused_in is not None else (None, None, None)
             return conv_k3_stats(x_NTC.contiguous(), w, b, mu, inv, self.stride, act, eps)
         y = self(x_NTC, fused_in)
         return (y, *block_stats(y, eps))

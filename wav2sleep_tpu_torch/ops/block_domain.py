@@ -2,9 +2,10 @@
 
 The math of ``wav2sleep_tpu/ops/block_domain.py`` (``block_stats`` and
 ``apply_norm_act``) as plain reductions over time on channels-last
-``[B, T, C]`` maps, and that module's switch for kernel-emitted statistics
-(``kernel_stats_enabled``). The JAX module's 128-lane block packing is a TPU
-layout device and is not carried over.
+``[B, T, C]`` maps, and the rule for where the fused chain takes
+kernel-emitted statistics instead (``kernel_stats_enabled``). The JAX
+module's 128-lane block packing is a TPU layout device and is not carried
+over.
 """
 
 from __future__ import annotations
@@ -14,17 +15,25 @@ from typing import Callable
 
 import torch
 
-# Kernel-emitted instance-norm statistics in the encoders' fused conv chain
-# (K2, ``ops/conv_k3.conv_k3_stats``) instead of a separate ``block_stats``
-# pass over each conv's output. None reads ``WAV2SLEEP_KERNEL_STATS``; off
-# by default, as in the JAX package.
+# Where the encoders' fused conv chain takes a conv's instance-norm
+# statistics from K2 (``ops/conv_k3.conv_k3_stats``, an epilogue of the conv)
+# instead of a separate ``block_stats`` pass over its output. None, the
+# default, decides per call: K2 where autograd records nothing for the call
+# (grad mode off, or no input requires grad), as in serving and evaluation,
+# and ``block_stats`` where a backward follows, since K2's backward reruns
+# ``block_stats`` in plain ops. True, or ``WAV2SLEEP_KERNEL_STATS`` set,
+# forces K2; False forces ``block_stats``.
 KERNEL_STATS: bool | None = None
 
 
-def kernel_stats_enabled() -> bool:
+def kernel_stats_enabled(*inputs: torch.Tensor | None) -> bool:
+    """Whether a fused-chain conv over ``inputs`` (its input, parameters and
+    input statistics) takes its statistics from K2."""
     if KERNEL_STATS is not None:
         return KERNEL_STATS
-    return bool(os.environ.get('WAV2SLEEP_KERNEL_STATS'))
+    if os.environ.get('WAV2SLEEP_KERNEL_STATS'):
+        return True
+    return not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs))
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:

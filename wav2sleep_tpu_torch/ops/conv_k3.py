@@ -49,8 +49,9 @@ from ..models.activations import get_activation
 from .block_domain import apply_norm_act, block_stats
 from .cuda_build import compile_library
 
-# Kernel launches made by ``conv_k3`` (K1) and ``conv_k3_stats`` (K2), CUDA
-# tensors only.
+# Launches of the k=3 conv kernel on CUDA tensors: ``LAUNCHES`` counts every
+# one, K1's (``conv_k3``) and K2's (``conv_k3_stats``); ``STATS_LAUNCHES``
+# counts K2's, those with the statistics epilogue.
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 
@@ -205,7 +206,7 @@ def _launch(x, w, bias, mu, inv, stride, act):
 
 
 def _launch_stats(x, w, bias, mu, inv, stride, act, eps):
-    global STATS_LAUNCHES
+    global LAUNCHES, STATS_LAUNCHES
     B, T, c_in, c_out = _validate(x, w, bias, mu, inv, stride)
     t_out = output_length(T, stride)
     lib = build()
@@ -226,6 +227,7 @@ def _launch_stats(x, w, bias, mu, inv, stride, act, eps):
         raise RuntimeError(
             f'conv_k3_stats launch failed: error {rc} at x {tuple(x.shape)} {x.dtype}, C_out {c_out}, stride {stride}'
         )
+    LAUNCHES += 1
     STATS_LAUNCHES += 1
     return y, mu_out, inv_out
 

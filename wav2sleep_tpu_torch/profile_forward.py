@@ -7,6 +7,9 @@ Runs ``make_streaming_forward_q8`` (bf16, the flagship model of the
 wav2sleep-eog) on seeded int8 codes for a batch of 8 ten-hour nights,
 already on the card, and prints, per forward:
 
+- the k3 conv kernel's launches (K1's and K2's; a serving forward takes
+  its statistics from K2, so all are K2's unless ``block_domain.KERNEL_STATS``
+  is False);
 - the wall time (CUDA events, median of 5), and the device time that
   ``torch.profiler`` records over 3 forwards;
 - the kernels, and then the ops that launched them, by self device time
@@ -74,10 +77,10 @@ def main(argv=None) -> None:
         return forward(q, *fields.values())
 
     wall = _cuda_ms(run)
-    conv_k3.LAUNCHES = 0
+    conv_k3.LAUNCHES = conv_k3.STATS_LAUNCHES = 0
     run()
     torch.cuda.synchronize()
-    k1_launches = conv_k3.LAUNCHES
+    launches, k2_launches = conv_k3.LAUNCHES, conv_k3.STATS_LAUNCHES
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(FORWARDS):
@@ -91,7 +94,8 @@ def main(argv=None) -> None:
     on_host = [a for a in avgs if a.device_type == DeviceType.CPU and _self_device_us(a) > 0]
     device_ms = sum(_self_device_us(a) for a in on_device) / 1e3 / n
     print(f'{torch.cuda.get_device_name(0)}; {args.signals} flagship q8 forward, bf16, B={B} x {HOURS:g} h; '
-          f'{k1_launches} K1 launches a forward')
+          f'{launches} k3 conv kernel launches a forward (conv_k3.LAUNCHES: K1 and K2), '
+          f'{k2_launches} of them K2 (statistics epilogue)')
     print(f'wall per forward (CUDA events, median of 5): {wall:.3f} ms')
     print(f'device time per forward (profiler, {n} forwards): {device_ms:.3f} ms '
           f'({100 * device_ms / wall:.1f}% of the wall)')

@@ -20,9 +20,12 @@ and prints, per step:
 - the kernels, and then the ops that launched them, by self device time;
 - the peak device memory.
 
-With ``WAV2SLEEP_KERNEL_STATS=1`` in the environment it profiles the
-kernel-statistics configuration. ``--table`` also writes the profiler's
-full ``key_averages()`` table there.
+A backward follows the step's forward, so by default the encoders' fused
+chain runs K1 and takes its statistics from ``block_stats``
+(``block_domain.kernel_stats_enabled``). ``WAV2SLEEP_KERNEL_STATS=1`` in the
+environment forces K2 there, whose backward reruns ``block_stats`` in plain
+ops. ``--table`` also writes the profiler's full ``key_averages()`` table
+there.
 """
 
 from __future__ import annotations
